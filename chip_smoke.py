@@ -1,0 +1,561 @@
+"""Drive the PyTorch/CUDA port (ray_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure:
+  (a) the device, and nvidia-smi's name and power limit for it;
+  (b) build the CUDA kernels from ray_tpu_torch/csrc with nvcc;
+  (c) hold each kernel against its plain PyTorch version on the card, at
+      the main-path shape and at small shapes (head_dim 16-128, causal on
+      and off, seq_q < seq_k and seq_q > seq_k, ragged tiles, fp32);
+  (d) GPT-2-small gpt_forward at 8x1024: flash attention against the
+      reference attention on the same weights;
+  (e) the main path: AdamW(3e-4) steps of GPT-2 small (full remat) at
+      batch 8, seq 1024 through make_train_step, with each kernel's
+      launches counted; step 0 against the reference-attention step,
+      and two control steps with wrong attention that must fail that gate;
+  (f) each kernel timed with CUDA events beside its plain version and
+      PyTorch's scaled_dot_product_attention (timed only here; the port
+      never calls it);
+  (g) one line {"kernels": [...]};
+  (h) last line {"ok": true, "device": {...}}.
+
+Exits non-zero, printing no result, without CUDA or without the package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+import torch.nn.functional as F
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+# H100 SXM published peaks (NVIDIA data sheet, dense): the bound_ms roofline.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+MAIN = dict(batch=8, heads=12, seq=1024, head_dim=64, dtype=torch.bfloat16)
+STEPS = 5          # flash-attention AdamW steps on the main path
+REF_STEPS = 3      # reference-attention steps, for step 0 and the A/B
+SEED = 0
+
+# Kernel against plain version, element by element:
+#     |kernel - plain| <= RTOL[dtype] * (|plain| + |W| |X|)
+# where W X is the product that defines the output (P V for o, dS K for dQ,
+# dS^T Q for dK, P^T dO for dV) taken in absolute values. This is the
+# rounding-error bound of the two sides: both round p and dS to the input
+# type at the same points, against the same running max (flash_fwd_plain
+# follows K1's 64-key tiles), and differ only in fp32 summation order. In
+# bf16 that order can flip the rounding of a single weight of p or dS (one
+# ulp, at most 2^-7 of it, so at most 2^-7 |W| |X| summed over the flipped
+# terms) and of the output itself (one ulp, at most 2^-7 |plain|). In fp32
+# nothing is rounded to a coarser type and 1e-5 covers fp32 summation
+# order over these lengths with a tenfold margin. lse is fp32 on both
+# sides, in log units: LSE_ATOL absolute; rows with no key match exactly.
+RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+LSE_ATOL = 1e-4
+# GPT-2 small in bf16, flash vs reference attention on the same weights:
+# the two paths round p at different points in each of 12 layers, so the
+# logits agree to bf16 working precision, not bit for bit.
+LOGITS_TOL = 5e-2          # max |Δ| over max |reference logits|
+# Step 0, flash against reference attention, relative; a few times the
+# readings on an H100 (loss 1.6e-5, grad norm 4.0e-4). Two control steps
+# with wrong attention (output zeroed; causal mask missing the diagonal)
+# must fail them.
+LOSS_RTOL = 1e-4
+GRAD_NORM_RTOL = 2e-3
+WARMUP, TIMED_RUNS = 3, 20
+
+LIBRARY_CALLS = {
+    "flash_fwd": "scaled_dot_product_attention forward",
+    "flash_bwd_dq": "scaled_dot_product_attention forward+backward",
+    "flash_bwd_dkv": "scaled_dot_product_attention forward+backward",
+}
+REPLACES = {
+    "flash_fwd": "ray_tpu/ops/attention.py:53 _flash_kernel",
+    "flash_bwd_dq": "ray_tpu/ops/attention.py:146 _flash_bwd_dq_kernel",
+    "flash_bwd_dkv": "ray_tpu/ops/attention.py:199 _flash_bwd_dkv_kernel",
+}
+SOURCE = "ray_tpu_torch/csrc/flash_attention.cu"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# (a) device
+# ---------------------------------------------------------------------------
+
+def phase_device() -> dict:
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"[a] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {name} count {torch.cuda.device_count()}")
+    log(f"[a] nvidia-smi --query-gpu=name,power.limit:")
+    log(card)
+    # fp32 checks must be fp32: no TF32 in matmuls or convolutions.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("[a] torch.backends.cuda.matmul.allow_tf32 = False, "
+        "cudnn.allow_tf32 = False")
+    return {"kind": name, "count": torch.cuda.device_count(), "smi": card}
+
+
+# ---------------------------------------------------------------------------
+# (b) build
+# ---------------------------------------------------------------------------
+
+def phase_build() -> None:
+    from ray_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    log(f"[b] nvcc {_build.find_nvcc()}: built {sorted(built) or 'nothing'} "
+        f"in {time.perf_counter() - t0:.1f} s "
+        f"(flags {' '.join(_build.NVCC_FLAGS)})")
+    for name in built:
+        text = _build.library_path(name).with_suffix(".log").read_text()
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"[b]   {line.strip()}")
+    _build.load_library("flash_attention")
+
+
+# ---------------------------------------------------------------------------
+# (c) kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b|, with NEG_INF rows (lse of rows that visit no key, or
+    whose keys are all masked) required to match exactly."""
+    a, b = a.float(), b.float()
+    real = b.abs() < 1e29
+    if not torch.equal(a.abs() < 1e29, real):
+        return math.inf
+    return float((a - b)[real].abs().max()) if real.any() else 0.0
+
+
+def _bound_ratio(a, b, mag, rtol) -> float:
+    """max over elements of |a - b| / (rtol (|b| + mag)): <= 1 passes."""
+    diff = (a.float() - b.float()).abs()
+    bound = rtol * (b.float().abs() + mag)
+    ratio = torch.where(diff == 0, 0.0, diff / bound)
+    return float(ratio.max()) if ratio.numel() else 0.0
+
+
+def _magnitudes(q, k, v, do, lse, delta, causal, scale, bq, bk) -> dict:
+    """|W| |X| of each output's defining product, from the plain parts."""
+    from ray_tpu_torch.ops import attention as A
+    # |P| |V|: the forward over |V| (its P is nonnegative already).
+    o_abs, _ = A.flash_fwd_plain(q, k, v.abs(), causal=causal,
+                                 sm_scale=scale, block_q=bq, block_k=bk)
+    p, ds = A._probs_and_dscores(q, k, v, do, lse, delta, causal, scale)
+    ds = ds.abs()
+    return {"o": o_abs.float(),
+            "dq": scale * torch.matmul(ds, k.float().abs()),
+            "dk": scale * torch.matmul(ds.transpose(1, 2), q.float().abs()),
+            "dv": torch.matmul(p.transpose(1, 2), do.float().abs())}
+
+
+def _inputs(bh, sq, sk, d, dtype, gen):
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    return rnd(bh, sq, d), rnd(bh, sk, d), rnd(bh, sk, d), rnd(bh, sq, d)
+
+
+def check_case(bh, sq, sk, d, dtype, causal, bq, bk, gen) -> dict:
+    """Run K1-K3 and their plain versions on the same inputs; returns
+    {kernel: (max_abs_err, max bound ratio, passed)} and the same for
+    K1's second output under "lse"."""
+    from ray_tpu_torch.ops import attention as A
+    q, k, v, do = _inputs(bh, sq, sk, d, dtype, gen)
+    scale = 1.0 / math.sqrt(d)
+    kw = dict(causal=causal, sm_scale=scale)
+    o_ref, lse_ref = A.flash_fwd_plain(q, k, v, block_q=bq, block_k=bk, **kw)
+    o, lse = A.flash_fwd(q, k, v, block_q=bq, block_k=bk, **kw)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    dq_ref = A.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, **kw)
+    dq = A.flash_bwd_dq(q, k, v, do, lse_ref, delta, **kw)
+    dk_ref, dv_ref = A.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, **kw)
+    dk, dv = A.flash_bwd_dkv(q, k, v, do, lse_ref, delta, **kw)
+    torch.cuda.synchronize()
+    mag = _magnitudes(q, k, v, do, lse_ref, delta, causal, scale, bq, bk)
+    rtol = RTOL[dtype]
+    lse_err = _max_err(lse, lse_ref)
+    pairs = {"flash_fwd": [(o, o_ref, mag["o"])],
+             "flash_bwd_dq": [(dq, dq_ref, mag["dq"])],
+             "flash_bwd_dkv": [(dk, dk_ref, mag["dk"]), (dv, dv_ref, mag["dv"])]}
+    out = {}
+    for name, items in pairs.items():
+        ratio = max(_bound_ratio(a, b, m, rtol) for a, b, m in items)
+        abs_err = max(_max_err(a, b) for a, b, _ in items)
+        out[name] = (abs_err, ratio, ratio <= 1.0)
+    out["lse"] = (lse_err, lse_err / LSE_ATOL, lse_err <= LSE_ATOL)
+    return out
+
+
+SMALL_CASES = [
+    # (bh, seq_q, seq_k, head_dim, dtype, causal, block_q, block_k)
+    (3, 128, 128, 32, torch.float32, True, 64, 64),
+    (3, 128, 128, 32, torch.float32, False, 64, 64),
+    (2, 64, 64, 16, torch.float32, True, 32, 32),
+    (2, 64, 192, 64, torch.float32, True, 32, 64),      # seq_q < seq_k
+    (2, 96, 32, 64, torch.float32, True, 32, 32),       # rows with no keys
+    (2, 64, 32, 32, torch.float32, True, 64, 32),       # masked rows: mean V
+    (2, 160, 96, 128, torch.float32, True, 32, 32),     # ragged 64-tiles
+    (2, 96, 224, 128, torch.float32, False, 32, 32),
+    (4, 128, 128, 32, torch.bfloat16, True, 64, 64),
+    (4, 128, 128, 64, torch.bfloat16, False, 64, 64),
+    (2, 128, 384, 64, torch.bfloat16, True, 128, 128),  # seq_q < seq_k
+    (2, 384, 128, 64, torch.bfloat16, True, 128, 128),  # seq_q > seq_k
+    (2, 96, 160, 16, torch.bfloat16, True, 32, 32),
+]
+
+
+def phase_kernels() -> dict:
+    """Every case is run and printed; then any disagreement raises."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    failed = []
+
+    def run(case, label):
+        res = check_case(*case, gen)
+        log(f"[c] {label}: " + ", ".join(
+            f"{n} max_abs {a:.3e} ratio {r:.3f}{'' if ok else ' FAIL'}"
+            for n, (a, r, ok) in res.items()))
+        failed.extend(f"{n} at {label}" for n, (_, _, ok) in res.items()
+                      if not ok)
+        return res
+
+    for case in SMALL_CASES:
+        bh, sq, sk, d, dt, causal, bq, bk = case
+        run(case, f"bh={bh} sq={sq} sk={sk} d={d} {str(dt)[6:]} "
+                  f"causal={causal} blocks=({bq},{bk})")
+    m = MAIN
+    bh = m["batch"] * m["heads"]
+    res = run((bh, m["seq"], m["seq"], m["head_dim"], m["dtype"], True,
+               128, 128), f"main shape bh={bh} s={m['seq']} "
+                          f"d={m['head_dim']} bf16 causal")
+    log(f"[c] tolerance: |kernel - plain| <= rtol (|plain| + |W||X|), rtol "
+        f"fp32 {RTOL[torch.float32]:.0e} bf16 2^-7; |lse - plain| <= "
+        f"{LSE_ATOL:.0e}; ratio = max |kernel - plain| / tolerance")
+    if failed:
+        raise AssertionError("kernels disagree with their plain versions: "
+                             + "; ".join(failed))
+    return {n: max(a, res["lse"][0]) if n == "flash_fwd" else a
+            for n, (a, _, _) in res.items() if n != "lse"}
+
+
+# ---------------------------------------------------------------------------
+# (d) GPT-2-small forward, flash vs reference attention
+# ---------------------------------------------------------------------------
+
+def _models(cfg):
+    from ray_tpu_torch.models import gpt_init
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    flash = gpt_init(cfg, device="cuda", generator=gen)
+    ref = gpt_init(dataclasses.replace(cfg, attention="reference"),
+                   device="cuda", generator=gen)
+    ref.load_state_dict(flash.state_dict())
+    return flash, ref
+
+
+def _tokens(cfg, batch, seq):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    return torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                         device="cuda")
+
+
+def phase_forward() -> None:
+    from ray_tpu_torch.models import GPTConfig, gpt_forward
+    cfg = GPTConfig.gpt2_small()
+    flash, ref = _models(cfg)
+    tokens = _tokens(cfg, MAIN["batch"], MAIN["seq"])
+    with torch.no_grad():
+        lf, _ = gpt_forward(flash, tokens)
+        lr, _ = gpt_forward(ref, tokens)
+    torch.cuda.synchronize()
+    if not torch.isfinite(lf).all():
+        raise AssertionError("flash logits are not finite")
+    if lf.shape != (MAIN["batch"], MAIN["seq"], cfg.vocab_size):
+        raise AssertionError(f"logits shape {tuple(lf.shape)}")
+    err = float((lf.float() - lr.float()).abs().max())
+    rel = err / float(lr.float().abs().max())
+    log(f"[d] gpt2-small gpt_forward 8x1024 bf16: logits {tuple(lf.shape)}, "
+        f"flash vs reference max |Δ| {err:.3e} = {rel:.2e} of max|logit| "
+        f"(tol {LOGITS_TOL:.0e})")
+    if not rel <= LOGITS_TOL:
+        raise AssertionError(f"flash logits differ from reference: {rel}")
+    del flash, ref, lf, lr
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# (e) the main path: GPT-2-small train steps
+# ---------------------------------------------------------------------------
+
+def _run_steps(model, n, batch):
+    from ray_tpu_torch.models import gpt_loss
+    from ray_tpu_torch.train import adamw, init_train_state, make_train_step
+    opt = adamw(3e-4)
+    state = init_train_state(lambda: model, opt)
+    step = make_train_step(gpt_loss, opt)
+    from ray_tpu_torch.ops.attention import KERNELS
+    losses, norms, times, counts = [], [], [], []
+    for _ in range(n):
+        before = {k: kern.launches for k, kern in KERNELS.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss = float(metrics["loss"])      # host readback ends the step
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        norms.append(float(metrics["grad_norm"]))
+        counts.append({k: kern.launches - before[k]
+                       for k, kern in KERNELS.items()})
+    return losses, norms, times, counts
+
+
+def _zeroed_attention(q, k, v, **_):
+    """Control: attention output 0 (connected to q, k, v, zero grads)."""
+    return (q + k + v) * 0.0
+
+
+def _diagonal_missed_attention(q, k, v, **_):
+    """Control: causal mask off by one, each query misses its own key."""
+    s = q.shape[2]
+    logits = torch.matmul(q, k.transpose(-1, -2)).float() / math.sqrt(
+        q.shape[-1])
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril(-1)
+    probs = torch.softmax(torch.where(mask, logits, -1e30), dim=-1)
+    return torch.matmul(probs.to(v.dtype), v)
+
+
+def _control_step(cfg, state_dict, batch, attention):
+    """Step 0 from the same weights with the model's flash attention
+    replaced by a wrong one: (loss, grad_norm)."""
+    from ray_tpu_torch.models import gpt as G
+    model = G.gpt_init(cfg, device="cuda")
+    model.load_state_dict(state_dict)
+    saved = G.flash_attention
+    G.flash_attention = attention
+    try:
+        loss, norm, _, _ = _run_steps(model, 1, batch)
+    finally:
+        G.flash_attention = saved
+    return loss[0], norm[0]
+
+
+def phase_train() -> dict:
+    from ray_tpu_torch.models import GPTConfig, count_params
+    from ray_tpu_torch.ops.attention import KERNELS
+    cfg = GPTConfig.gpt2_small()
+    flash, ref = _models(cfg)
+    bs, seq = MAIN["batch"], MAIN["seq"]
+    batch = {"tokens": _tokens(cfg, bs, seq + 1)}
+    log(f"[e] gpt2-small {count_params(flash):,} params, bs {bs} seq {seq}, "
+        f"remat full, AdamW(3e-4)")
+
+    r_loss, r_norm, r_times, _ = _run_steps(ref, REF_STEPS, batch)
+    del ref
+    controls = {name: _control_step(cfg, flash.state_dict(), batch, fn)
+                for name, fn in (("attention zeroed", _zeroed_attention),
+                                 ("diagonal missed",
+                                  _diagonal_missed_attention))}
+    torch.cuda.empty_cache()
+
+    for kern in KERNELS.values():
+        kern.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    f_loss, f_norm, f_times, f_counts = _run_steps(flash, STEPS, batch)
+    launches = {k: kern.launches for k, kern in KERNELS.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    def ms(ts):
+        return 1e3 * statistics.median(ts[1:])
+    for i in range(STEPS):
+        log(f"[e] flash step {i}: loss {f_loss[i]:.5f} grad_norm "
+            f"{f_norm[i]:.5f} {1e3 * f_times[i]:.1f} ms launches {f_counts[i]}")
+    for i in range(REF_STEPS):
+        log(f"[e] reference step {i}: loss {r_loss[i]:.5f} grad_norm "
+            f"{r_norm[i]:.5f} {1e3 * r_times[i]:.1f} ms")
+    f_ms, r_ms = ms(f_times), ms(r_times)
+    log(f"[e] flash: step {f_ms:.1f} ms (median of steps 1-{STEPS - 1}), "
+        f"{bs * seq / f_ms * 1e3:,.0f} tok/s, peak memory {peak_gb:.1f} GB")
+    log(f"[e] reference: step {r_ms:.1f} ms (median of steps "
+        f"1-{REF_STEPS - 1}), {bs * seq / r_ms * 1e3:,.0f} tok/s")
+    log(f"[e] launches over {STEPS} steps: {launches}")
+
+    expected = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+                "flash_bwd_dkv": cfg.n_layers}
+    for i, c in enumerate(f_counts):
+        if c != expected:
+            raise AssertionError(f"step {i} launches {c} != {expected}")
+    if not all(math.isfinite(x) for x in f_loss + f_norm):
+        raise AssertionError(f"non-finite loss or grad norm: {f_loss}")
+    if not f_loss[-1] < f_loss[0]:
+        raise AssertionError(f"loss did not fall: {f_loss}")
+    def gate(loss, norm, label):
+        dl = abs(loss - r_loss[0]) / abs(r_loss[0])
+        dn = abs(norm - r_norm[0]) / abs(r_norm[0])
+        ok = dl <= LOSS_RTOL and dn <= GRAD_NORM_RTOL
+        log(f"[e] step 0 {label} vs reference: loss {loss:.5f} rel {dl:.2e} "
+            f"(tol {LOSS_RTOL:.0e}), grad_norm {norm:.5f} rel {dn:.2e} "
+            f"(tol {GRAD_NORM_RTOL:.0e}): {'pass' if ok else 'fail'}")
+        return ok
+
+    if not gate(f_loss[0], f_norm[0], "flash"):
+        raise AssertionError("step 0 differs from the reference step")
+    passed = [name for name, res in controls.items()
+              if gate(*res, f"control ({name})")]
+    if passed:
+        raise AssertionError(f"the step-0 gate passes wrong attention: "
+                             f"{passed}")
+    del flash
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# (f) kernel timing
+# ---------------------------------------------------------------------------
+
+def _time_ms(fn, flush) -> float:
+    """Median over TIMED_RUNS of CUDA-event time, each run after writing
+    a buffer larger than the 50 MB L2 so that inputs come from HBM."""
+    for _ in range(WARMUP):
+        fn()
+    times = []
+    for _ in range(TIMED_RUNS):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _bound_ms(name, bh, s, d, dtype) -> tuple:
+    """Least time for the work: bytes (each input read once, each output
+    written once) over HBM bandwidth vs causal FLOPs over peak."""
+    el = torch.finfo(dtype).bits // 8
+    mat, row = bh * s * d * el, bh * s * 4
+    pairs = bh * s * (s + 1) // 2                  # causal (q, k) pairs
+    work = {"flash_fwd": (4 * mat + row, 4 * d * pairs),
+            "flash_bwd_dq": (5 * mat + 2 * row, 6 * d * pairs),
+            "flash_bwd_dkv": (6 * mat + 2 * row, 8 * d * pairs)}
+    nbytes, flops = work[name]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, flops)
+
+
+def phase_timing() -> dict:
+    from ray_tpu_torch.ops import attention as A
+    m = MAIN
+    b, h, s, d, dt = m["batch"], m["heads"], m["seq"], m["head_dim"], m["dtype"]
+    bh = b * h
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 2)
+    q, k, v, do = _inputs(bh, s, s, d, dt, gen)
+    scale = 1.0 / math.sqrt(d)
+    kw = dict(causal=True, sm_scale=scale)
+    fw = dict(block_q=128, block_k=128)
+    o, lse = A.flash_fwd_plain(q, k, v, **fw, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    saved = {n: kern.launches for n, kern in A.KERNELS.items()}
+
+    runs = {
+        "flash_fwd": (lambda: A.flash_fwd(q, k, v, **fw, **kw),
+                      lambda: A.flash_fwd_plain(q, k, v, **fw, **kw)),
+        "flash_bwd_dq": (
+            lambda: A.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+            lambda: A.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw)),
+        "flash_bwd_dkv": (
+            lambda: A.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
+            lambda: A.flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)),
+    }
+    q4, k4, v4, do4 = (t.view(b, h, s, d) for t in (q, k, v, do))
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q4, k4, v4))
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        torch.autograd.grad(out, (qg, kg, vg), do4)
+
+    lib = {"flash_fwd": _time_ms(sdpa_fwd, flush)}
+    lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = _time_ms(sdpa_fwd_bwd, flush)
+    out = {}
+    for name, (kernel, plain) in runs.items():
+        # Order plain, kernel, kernel, plain; each side reports its median.
+        p1 = _time_ms(plain, flush)
+        k1 = _time_ms(kernel, flush)
+        k2 = _time_ms(kernel, flush)
+        p2 = _time_ms(plain, flush)
+        bound, by, nbytes, flops = _bound_ms(name, bh, s, d, dt)
+        out[name] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
+                         library_ms=lib[name], bound_ms=bound, bound_by=by)
+        log(f"[f] {name}: kernel {k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/"
+            f"{p2:.3f} ms, {LIBRARY_CALLS[name]} {lib[name]:.3f} ms, bound "
+            f"{bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP)")
+    for n, kern in A.KERNELS.items():
+        kern.launches = saved[n]   # timing launches are not main-path ones
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "runs the port on the card only", file=sys.stderr)
+        return 2
+    try:
+        import ray_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the ray_tpu_torch package is missing ({e}); run "
+              "from the root of a checkout", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    dev = phase_device()
+    phase_build()
+    errs = phase_kernels()
+    phase_forward()
+    launches = phase_train()
+    timing = phase_timing()
+    kernels = [dict(name=n, route="cuda", source=SOURCE, replaces=REPLACES[n],
+                    launches=launches[n], max_abs_err=errs[n],
+                    library=LIBRARY_CALLS[n], **timing[n])
+               for n in REPLACES]
+    log(f"[g] total {time.perf_counter() - t_start:.1f} s on {dev['smi']}")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}),
+        flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,352 @@
+"""Attention: the reference path and flash attention with CUDA kernels.
+
+Counterpart of ``ray_tpu/ops/attention.py``. The three Pallas kernels
+there become the CUDA kernels of ``ray_tpu_torch/csrc/flash_attention.cu``:
+
+    K1 flash_fwd       <- _flash_kernel           (forward: o, lse)
+    K2 flash_bwd_dq    <- _flash_bwd_dq_kernel    (dQ)
+    K3 flash_bwd_dkv   <- _flash_bwd_dkv_kernel   (dK, dV)
+
+Each kernel has a plain PyTorch version of the same function beside it
+(``*_plain``). A wrapper takes the plain version only when its tensors lie
+on the CPU; a CUDA tensor launches the kernel, and a kernel that cannot be
+built or launched raises. Each wrapper counts its launches in
+``KERNELS[name].launches``.
+
+Kernel layouts: q [BH, Sq, D], k/v [BH, Sk, D], lse/delta [BH, Sq] fp32.
+Public layouts: q, k, v are [batch, num_heads, seq, head_dim].
+
+Contract for fully masked rows (causal, seq_q > seq_k): as in the JAX
+``flash_attention``, a row whose q block visits no key block gets 0, and
+the backward forces p to 0 wherever the logit is masked. ``mha_reference``
+gives mean(V) for such rows instead, as JAX's does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from ray_tpu_torch.ops import _build
+
+NEG_INF = -1e30
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (16, 32, 64, 128)
+KERNEL_TILE = 64   # kTile of csrc/flash_attention.cu: keys per step of K1
+
+
+# ---------------------------------------------------------------------------
+# Reference implementation (small seqs, correctness baseline)
+# ---------------------------------------------------------------------------
+
+def mha_reference(q, k, v, *, causal: bool = True,
+                  sm_scale: Optional[float] = None):
+    """Softmax attention over [B, H, S, D]: logits from a matmul in the
+    input dtype, then fp32 softmax, probs cast to ``v.dtype``."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * sm_scale
+    if causal:
+        qlen, klen = q.shape[2], k.shape[2]
+        mask = torch.ones((qlen, klen), dtype=torch.bool,
+                          device=q.device).tril(klen - qlen)
+        logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions of the three kernels
+# ---------------------------------------------------------------------------
+
+def _keys_visited(seq_q: int, seq_k: int, causal: bool, block_q: int,
+                  block_k: int, device) -> torch.Tensor:
+    """[Sq] number of keys the forward visits for each query row: whole
+    block_k blocks up to the diagonal of the row's block_q block
+    (attention.py:101-106)."""
+    if not causal:
+        return torch.full((seq_q,), seq_k, dtype=torch.long, device=device)
+    qb = torch.arange(seq_q, device=device) // block_q
+    nb = torch.div((qb + 1) * block_q + (seq_k - seq_q) + block_k - 1,
+                   block_k, rounding_mode="floor")
+    return (nb * block_k).clamp(0, seq_k)
+
+
+def _scores(q, k, causal: bool, sm_scale: float):
+    """fp32 logits [BH, Sq, Sk] with masked entries at NEG_INF, and the
+    mask of entries a query may attend. Dot inputs keep the input dtype's
+    values and accumulate in fp32, as the kernels do."""
+    seq_q, seq_k = q.shape[1], k.shape[1]
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * sm_scale
+    if not causal:
+        return s, None
+    allowed = torch.ones((seq_q, seq_k), dtype=torch.bool,
+                         device=q.device).tril(seq_k - seq_q)
+    return torch.where(allowed, s, NEG_INF), allowed
+
+
+def flash_fwd_plain(q, k, v, *, causal: bool, sm_scale: float,
+                    block_q: int, block_k: int) -> Tuple[torch.Tensor,
+                                                         torch.Tensor]:
+    """What K1 computes, in one pass: (o [BH,Sq,D] in q's dtype, lse
+    [BH,Sq] fp32). Keys the Pallas forward never visits carry no weight;
+    rows that visit nothing get o = 0 and lse = NEG_INF.
+
+    p is rounded to v's dtype where K1 rounds it: against the running max
+    of the row after each of K1's KERNEL_TILE-key tiles, the partial sums
+    then rescaled to the final max."""
+    bh, seq_q, seq_k = q.shape[0], q.shape[1], k.shape[1]
+    s, _ = _scores(q, k, causal, sm_scale)
+    visited = (torch.arange(seq_k, device=q.device)[None, :]
+               < _keys_visited(seq_q, seq_k, causal, block_q, block_k,
+                               q.device)[:, None])
+    s = torch.where(visited, s, -math.inf)
+    n_tiles = -(-seq_k // KERNEL_TILE)
+    tiles = torch.nn.functional.pad(
+        s, (0, n_tiles * KERNEL_TILE - seq_k), value=-math.inf)
+    m_run = (tiles.view(bh, seq_q, n_tiles, KERNEL_TILE).amax(dim=-1)
+             .cummax(dim=-1).values.clamp_min(NEG_INF))
+    m = m_run[..., -1:]
+    m_key = m_run.repeat_interleave(KERNEL_TILE, dim=-1)[..., :seq_k]
+    l = torch.exp(s - m).sum(dim=-1, keepdim=True)
+    l = torch.where(l == 0.0, 1.0, l)
+    p = torch.exp(s - m_key).to(v.dtype).float() * torch.exp(m_key - m)
+    acc = torch.matmul(p, v.float())
+    o = (acc / l).to(q.dtype)
+    lse = (m + torch.log(l)).squeeze(-1)
+    return o, lse
+
+
+def _probs_and_dscores(q, k, v, do, lse, delta, causal, sm_scale):
+    """p = exp(s - lse), forced to 0 where masked; dS = p * (dO V^T - δ)."""
+    s, allowed = _scores(q, k, causal, sm_scale)
+    p = torch.exp(s - lse[:, :, None])
+    if allowed is not None:
+        p = torch.where(allowed, p, 0.0)
+    dp = torch.matmul(do.float(), v.float().transpose(1, 2))
+    return p, p * (dp - delta[:, :, None])
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, causal: bool,
+                       sm_scale: float) -> torch.Tensor:
+    """What K2 computes: dQ = scale * dS K with dS rounded to k's dtype."""
+    _, ds = _probs_and_dscores(q, k, v, do, lse, delta, causal, sm_scale)
+    dq = torch.matmul(ds.to(k.dtype).float(), k.float()) * sm_scale
+    return dq.to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, causal: bool,
+                        sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What K3 computes: dV = P^T dO and dK = scale * dS^T Q, with P and
+    dS rounded to the input dtype."""
+    p, ds = _probs_and_dscores(q, k, v, do, lse, delta, causal, sm_scale)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(1, 2), do.float())
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(1, 2),
+                      q.float()) * sm_scale
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+class CudaKernel:
+    """One C entry point of a ``csrc`` library, with its launch count.
+
+    ``launches`` goes up by one for each launch that returned no error,
+    and nowhere else."""
+
+    def __init__(self, name: str, source: str, symbol: str, argtypes):
+        self.name, self.source, self.symbol = name, source, symbol
+        self.argtypes = argtypes
+        self.launches = 0
+
+    def __call__(self, *args) -> None:
+        lib = _build.load_library(self.source)
+        fn = getattr(lib, self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        _build.check(lib, fn(*args), self.name)
+        self.launches += 1
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+KERNELS = {
+    "flash_fwd": CudaKernel(
+        "flash_fwd", "flash_attention", "rtt_flash_fwd",
+        [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P]),
+    "flash_bwd_dq": CudaKernel(
+        "flash_bwd_dq", "flash_attention", "rtt_flash_bwd_dq",
+        [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P]),
+    "flash_bwd_dkv": CudaKernel(
+        "flash_bwd_dkv", "flash_attention", "rtt_flash_bwd_dkv",
+        [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P]),
+}
+
+
+def _check_inputs(q, k, v, *extra) -> None:
+    """Raise on what the kernels do not take."""
+    if not (q.dim() == k.dim() == v.dim() == 3):
+        raise ValueError("flash kernels take [BH, S, D] tensors")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash kernels take float32 or bfloat16 q/k/v of "
+                        f"one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if q.shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {q.shape[-1]} not in {_HEAD_DIMS}")
+    if (k.shape != v.shape or q.shape[0] != k.shape[0]
+            or q.shape[2] != k.shape[2]):
+        raise ValueError(f"shape mismatch q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)}")
+    if q.shape[0] > 65535 or min(q.shape[1], k.shape[1]) <= 0:
+        raise ValueError("flash kernels need 0 < BH <= 65535 and seq > 0")
+    for t in (q, k, v, *extra):
+        if t.device != q.device:
+            raise ValueError("flash kernel inputs must share one device")
+        if not t.is_contiguous():
+            raise ValueError("flash kernel inputs must be contiguous")
+
+
+def _plain_path(q: torch.Tensor) -> bool:
+    """CPU tensors take the plain version, CUDA tensors the kernel; any
+    other device raises."""
+    if q.device.type == "cpu":
+        return True
+    if q.device.type != "cuda":
+        raise ValueError(f"flash kernels run on CUDA (or plain on the CPU), "
+                         f"not on {q.device}")
+    return False
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _check_bwd(q, do, lse, delta) -> None:
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError("dO must match q in shape and dtype")
+    for r in (lse, delta):
+        if r.dtype != torch.float32 or r.shape != q.shape[:2]:
+            raise ValueError("lse/delta must be float32 [BH, Sq]")
+
+
+def flash_fwd(q, k, v, *, causal: bool, sm_scale: float, block_q: int,
+              block_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1: (o, lse) for q [BH,Sq,D], k/v [BH,Sk,D]."""
+    if _plain_path(q):
+        return flash_fwd_plain(q, k, v, causal=causal, sm_scale=sm_scale,
+                               block_q=block_q, block_k=block_k)
+    _check_inputs(q, k, v)
+    bh, seq_q, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, seq_q), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        KERNELS["flash_fwd"](
+            _DTYPES[q.dtype], d, _ptr(q), _ptr(k), _ptr(v), _ptr(o),
+            _ptr(lse), bh, seq_q, k.shape[1], float(sm_scale), int(causal),
+            int(block_q), int(block_k), _stream(q))
+    return o, lse
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool,
+                 sm_scale: float) -> torch.Tensor:
+    """K2: dQ [BH,Sq,D]."""
+    if _plain_path(q):
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal=causal,
+                                  sm_scale=sm_scale)
+    _check_inputs(q, k, v, do, lse, delta)
+    _check_bwd(q, do, lse, delta)
+    bh, seq_q, d = q.shape
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        KERNELS["flash_bwd_dq"](
+            _DTYPES[q.dtype], d, _ptr(q), _ptr(k), _ptr(v), _ptr(do),
+            _ptr(lse), _ptr(delta), _ptr(dq), bh, seq_q, k.shape[1],
+            float(sm_scale), int(causal), _stream(q))
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool,
+                  sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3: (dK, dV) [BH,Sk,D]."""
+    if _plain_path(q):
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=causal,
+                                   sm_scale=sm_scale)
+    _check_inputs(q, k, v, do, lse, delta)
+    _check_bwd(q, do, lse, delta)
+    bh, seq_q, d = q.shape
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        KERNELS["flash_bwd_dkv"](
+            _DTYPES[q.dtype], d, _ptr(q), _ptr(k), _ptr(v), _ptr(do),
+            _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv), bh, seq_q,
+            k.shape[1], float(sm_scale), int(causal), _stream(q))
+    return dk, dv
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (single device)
+# ---------------------------------------------------------------------------
+
+class _FlashFn(torch.autograd.Function):
+    """K1 forward, K2 + K3 backward over the saved (q, k, v, out, lse):
+    O(seq) memory, no [Sq, Sk] tensor in device memory."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, block_q, block_k):
+        b, h, seq_q, d = q.shape
+        seq_k = k.shape[2]
+        qr = q.reshape(b * h, seq_q, d).contiguous()
+        kr = k.reshape(b * h, seq_k, d).contiguous()
+        vr = v.reshape(b * h, seq_k, d).contiguous()
+        out, lse = flash_fwd(qr, kr, vr, causal=causal, sm_scale=sm_scale,
+                             block_q=block_q, block_k=block_k)
+        ctx.save_for_backward(qr, kr, vr, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out.view(b, h, seq_q, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        qr, kr, vr, out, lse = ctx.saved_tensors
+        b, h, seq_q, d = g.shape
+        seq_k = kr.shape[1]
+        gr = g.reshape(b * h, seq_q, d).contiguous()
+        # delta_i = rowsum(dO_i * O_i) in fp32, outside the kernels as XLA
+        # fuses it outside the Pallas kernels (attention.py:267).
+        delta = (gr.float() * out.float()).sum(dim=-1)
+        dq = flash_bwd_dq(qr, kr, vr, gr, lse, delta, causal=ctx.causal,
+                          sm_scale=ctx.sm_scale)
+        dk, dv = flash_bwd_dkv(qr, kr, vr, gr, lse, delta,
+                               causal=ctx.causal, sm_scale=ctx.sm_scale)
+        return (dq.view(b, h, seq_q, d), dk.view(b, h, seq_k, d),
+                dv.view(b, h, seq_k, d), None, None, None, None)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    sm_scale: Optional[float] = None,
+                    block_q: int = 128, block_k: int = 128):
+    """Fused attention over [B, H, S, D]; O(seq) memory via online softmax.
+
+    ``block_q``/``block_k`` are the JAX kernel's blocks: they decide the
+    ragged fallback to ``mha_reference`` and which keys a fully masked row
+    averages over. The CUDA kernels pick their own tiles. The tensors'
+    device decides between the kernels (CUDA) and their plain versions
+    (CPU)."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    seq_q, seq_k = q.shape[2], k.shape[2]
+    block_q = min(block_q, seq_q)
+    block_k = min(block_k, seq_k)
+    if seq_q % block_q or seq_k % block_k:
+        # Fall back for ragged shapes, as the JAX package does.
+        return mha_reference(q, k, v, causal=causal, sm_scale=sm_scale)
+    return _FlashFn.apply(q, k, v, causal, float(sm_scale), block_q, block_k)
+

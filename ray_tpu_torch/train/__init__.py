@@ -1,0 +1,8 @@
+"""Training of the port (``ray_tpu/train``): the single-device train step."""
+
+from ray_tpu_torch.train.train_step import (AdamW, TrainState, adamw,
+                                            init_train_state,
+                                            make_eval_step, make_train_step)
+
+__all__ = ["AdamW", "TrainState", "adamw", "init_train_state",
+           "make_eval_step", "make_train_step"]

@@ -1,0 +1,137 @@
+"""Parity: ray_tpu_torch.ops.attention against ray_tpu.ops.attention.
+
+On the CPU the port's flash_attention runs the plain PyTorch versions of
+its three CUDA kernels (the tensors' device decides), and JAX's runs its
+Pallas kernels in interpret mode, as tests/test_parallel.py::TestAttention
+runs them. Inputs come from a numpy seed and go to both as numpy arrays.
+
+Tolerances, fp32 throughout: 2e-5 on forward values and 2e-4 on grads,
+the bounds TestAttention holds the Pallas kernels to against
+mha_reference. At causal seq_q > seq_k the first rows see no key; both
+flash paths give 0 there (mha_reference gives mean(V)), so those shapes
+compare the port only against JAX's flash_attention.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu_torch.ops import attention as tat
+
+FWD_TOL = 2e-5
+GRAD_TOL = 2e-4
+
+
+@pytest.fixture(scope="module")
+def jx(jax_cpu):
+    return jax_cpu
+
+
+def _qkv(seed, b, h, sq, sk, d):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, sq, d)).astype(np.float32)
+    k = rng.standard_normal((b, h, sk, d)).astype(np.float32)
+    v = rng.standard_normal((b, h, sk, d)).astype(np.float32)
+    w = rng.standard_normal((b, h, sq, d)).astype(np.float32)
+    return q, k, v, w
+
+
+def _jax_flash(q, k, v, w, causal, bq, bk):
+    import jax
+    import jax.numpy as jnp
+    from ray_tpu.ops.attention import flash_attention
+
+    def loss(q, k, v):
+        out = flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
+        return jnp.sum(out * w), out
+
+    (_, out), grads = jax.value_and_grad(loss, argnums=(0, 1, 2),
+                                         has_aux=True)(q, k, v)
+    return np.asarray(out), [np.asarray(g) for g in grads]
+
+
+def _torch_flash(q, k, v, w, causal, bq, bk):
+    tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    out = tat.flash_attention(tq, tk, tv, causal=causal, block_q=bq,
+                              block_k=bk)
+    (out * torch.from_numpy(w)).sum().backward()
+    return out.detach().numpy(), [t.grad.numpy() for t in (tq, tk, tv)]
+
+
+# (seq_q, seq_k, head_dim, causal, block_q, block_k)
+CASES = [
+    (64, 64, 16, True, 32, 32),
+    (64, 64, 16, False, 32, 32),
+    (128, 128, 32, True, 64, 64),
+    (128, 128, 32, False, 64, 64),
+    (32, 96, 16, True, 32, 32),     # seq_q < seq_k: bottom-right offset
+    (64, 128, 32, False, 32, 64),
+    (96, 32, 16, True, 32, 32),     # seq_q > seq_k: 64 rows see no key
+    (128, 64, 32, True, 64, 64),
+    (64, 32, 16, True, 64, 32),     # masked rows inside a visited block
+]
+
+
+@pytest.mark.parametrize("sq,sk,d,causal,bq,bk", CASES)
+def test_flash_matches_jax(jx, sq, sk, d, causal, bq, bk):
+    q, k, v, w = _qkv(sq * 7 + sk + d, 1, 2, sq, sk, d)
+    j_out, j_grads = _jax_flash(q, k, v, w, causal, bq, bk)
+    t_out, t_grads = _torch_flash(q, k, v, w, causal, bq, bk)
+    assert np.abs(t_out - j_out).max() < FWD_TOL
+    for name, a, b in zip("qkv", t_grads, j_grads):
+        assert np.abs(a - b).max() < GRAD_TOL, name
+
+
+def test_fully_masked_rows_are_zero(jx):
+    """The flash contract: rows whose q block visits no key block are 0 in
+    both packages, and their grads are 0."""
+    q, k, v, w = _qkv(3, 1, 2, 96, 32, 16)
+    t_out, t_grads = _torch_flash(q, k, v, w, True, 32, 32)
+    j_out, _ = _jax_flash(q, k, v, w, True, 32, 32)
+    assert np.all(t_out[:, :, :64] == 0.0)
+    assert np.all(j_out[:, :, :64] == 0.0)
+    assert np.all(t_grads[0][:, :, :64] == 0.0)
+
+
+def test_ragged_falls_back_to_reference(jx):
+    """seq not divisible by the block: both packages fall back to
+    mha_reference (a different result from the flash path's)."""
+    import jax
+    import jax.numpy as jnp
+    from ray_tpu.ops.attention import flash_attention
+
+    q, k, v, w = _qkv(11, 1, 2, 48, 48, 16)
+    t_out, t_grads = _torch_flash(q, k, v, w, True, 32, 32)
+    j_out = np.asarray(flash_attention(q, k, v, causal=True, block_q=32,
+                                       block_k=32))
+    j_grads = jax.grad(
+        lambda q, k, v: jnp.sum(flash_attention(
+            q, k, v, causal=True, block_q=32, block_k=32) * w),
+        argnums=(0, 1, 2))(q, k, v)
+    ref = tat.mha_reference(*(torch.from_numpy(x) for x in (q, k, v)))
+    assert np.abs(t_out - ref.numpy()).max() == 0.0
+    assert np.abs(t_out - j_out).max() < FWD_TOL
+    for a, b in zip(t_grads, j_grads):
+        assert np.abs(a - np.asarray(b)).max() < GRAD_TOL
+
+
+@pytest.mark.parametrize("sq,sk,causal", [(64, 64, True), (64, 64, False),
+                                          (32, 96, True), (96, 32, True)])
+def test_mha_reference_matches_jax(jx, sq, sk, causal):
+    from ray_tpu.ops.attention import mha_reference
+    q, k, v, _ = _qkv(5, 2, 2, sq, sk, 32)
+    j = np.asarray(mha_reference(q, k, v, causal=causal))
+    t = tat.mha_reference(*(torch.from_numpy(x) for x in (q, k, v)),
+                          causal=causal).numpy()
+    assert np.abs(t - j).max() < FWD_TOL
+
+
+def test_plain_versions_agree_with_autograd_of_reference():
+    """The plain dQ/dK/dV equal autograd through mha_reference where no row
+    is fully masked (fp32, 2e-4 as above)."""
+    q, k, v, w = _qkv(7, 1, 2, 64, 96, 32)
+    tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    (tat.mha_reference(tq, tk, tv) * torch.from_numpy(w)).sum().backward()
+    _, grads = _torch_flash(q, k, v, w, True, 32, 32)
+    for a, b in zip(grads, (tq.grad, tk.grad, tv.grad)):
+        assert np.abs(a - b.numpy()).max() < GRAD_TOL

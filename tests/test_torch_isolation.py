@@ -1,0 +1,79 @@
+"""The port stands alone: no JAX and nothing of ray_tpu behind it, no
+silent CPU fallback for the card, and no nvcc needed to import it."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import ray_tpu_torch
+from ray_tpu_torch.ops import _build
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _all_modules():
+    return ["ray_tpu_torch"] + sorted(
+        m.name for m in pkgutil.walk_packages(ray_tpu_torch.__path__,
+                                              "ray_tpu_torch."))
+
+
+def test_package_imports_no_jax_and_no_ray_tpu():
+    mods = _all_modules()
+    assert "ray_tpu_torch.ops.attention" in mods
+    assert "ray_tpu_torch.train.train_step" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'ray_tpu'))\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                   check=True, timeout=120)
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    from ray_tpu_torch.models import GPTConfig, gpt_init
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ray_tpu_torch.resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        gpt_init(GPTConfig.tiny())
+    assert ray_tpu_torch.resolve_device("cpu").type == "cpu"
+
+
+def test_kernels_import_and_cpu_path_need_no_nvcc(monkeypatch):
+    """Without nvcc the wrappers import and CPU tensors take the plain
+    versions, while building the kernels raises."""
+    from ray_tpu_torch.ops import attention
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(_build, "NVCC_FALLBACK", "/nonexistent/nvcc")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()
+    before = {n: k.launches for n, k in attention.KERNELS.items()}
+    q = torch.randn(1, 2, 64, 16)
+    out = attention.flash_attention(q, q, q, block_q=32, block_k=32)
+    assert out.shape == q.shape
+    assert {n: k.launches for n, k in attention.KERNELS.items()} == before
+
+
+def test_build_is_keyed_by_source_hash(monkeypatch, tmp_path):
+    """An edit to a CUDA source names a new library (so it is rebuilt)."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "k.cu").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", src)
+    first = _build.library_path("k")
+    (src / "k.cu").write_text("// v2\n")
+    assert _build.library_path("k") != first
+    assert first.parent == _build.BUILD_DIR

@@ -7,16 +7,20 @@ Phases, each of which raises on failure:
   (b) build the CUDA kernels from ray_tpu_torch/csrc with nvcc;
   (c) hold each kernel against its plain PyTorch version on the card, at
       the main-path shape and at small shapes (head_dim 16-128, causal on
-      and off, seq_q < seq_k and seq_q > seq_k, ragged tiles, fp32);
+      and off, seq_q < seq_k and seq_q > seq_k, ragged tiles, rows with
+      no key or only masked keys, fp32 and bf16);
   (d) GPT-2-small gpt_forward at 8x1024: flash attention against the
       reference attention on the same weights;
   (e) the main path: AdamW(3e-4) steps of GPT-2 small (full remat) at
       batch 8, seq 1024 through make_train_step, with each kernel's
       launches counted; step 0 against the reference-attention step,
       and two control steps with wrong attention that must fail that gate;
+      then one more step under torch.profiler: each kernel's device time,
+      the top device ops, and the kernels' share of the step;
   (f) each kernel timed with CUDA events beside its plain version and
-      PyTorch's scaled_dot_product_attention (timed only here; the port
-      never calls it);
+      PyTorch's scaled_dot_product_attention (forward for K1, backward
+      alone for K2 and K3, forward+backward printed beside; timed only
+      here, the port never calls it);
   (g) one line {"kernels": [...]};
   (h) last line {"ok": true, "device": {...}}.
 
@@ -25,6 +29,7 @@ Exits non-zero, printing no result, without CUDA or without the package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -77,15 +82,21 @@ WARMUP, TIMED_RUNS = 3, 20
 
 LIBRARY_CALLS = {
     "flash_fwd": "scaled_dot_product_attention forward",
-    "flash_bwd_dq": "scaled_dot_product_attention forward+backward",
-    "flash_bwd_dkv": "scaled_dot_product_attention forward+backward",
+    "flash_bwd_dq": "scaled_dot_product_attention backward",
+    "flash_bwd_dkv": "scaled_dot_product_attention backward",
 }
 REPLACES = {
     "flash_fwd": "ray_tpu/ops/attention.py:53 _flash_kernel",
     "flash_bwd_dq": "ray_tpu/ops/attention.py:146 _flash_bwd_dq_kernel",
     "flash_bwd_dkv": "ray_tpu/ops/attention.py:199 _flash_bwd_dkv_kernel",
 }
-SOURCE = "ray_tpu_torch/csrc/flash_attention.cu"
+# K1 and K3 run the tensor-core design of flash_wgmma.cuh on the main path
+# (bf16, head dim 64); K2 the CUDA-core kernel of flash_attention.cu.
+SOURCES = {
+    "flash_fwd": "ray_tpu_torch/csrc/flash_wgmma.cuh",
+    "flash_bwd_dq": "ray_tpu_torch/csrc/flash_attention.cu",
+    "flash_bwd_dkv": "ray_tpu_torch/csrc/flash_wgmma.cuh",
+}
 
 
 def log(msg: str) -> None:
@@ -222,6 +233,12 @@ SMALL_CASES = [
     (2, 128, 384, 64, torch.bfloat16, True, 128, 128),  # seq_q < seq_k
     (2, 384, 128, 64, torch.bfloat16, True, 128, 128),  # seq_q > seq_k
     (2, 96, 160, 16, torch.bfloat16, True, 32, 32),
+    # bf16 counterparts of the fp32 edge cases: the tensor-core kernels.
+    (2, 160, 96, 128, torch.bfloat16, True, 32, 32),    # ragged 64-tiles
+    (2, 64, 32, 64, torch.bfloat16, True, 64, 32),      # masked rows: mean V
+    (2, 96, 224, 128, torch.bfloat16, False, 32, 32),
+    (2, 96, 32, 64, torch.bfloat16, True, 32, 32),      # rows with no keys
+    (8, 1024, 1024, 128, torch.bfloat16, True, 128, 128),
 ]
 
 
@@ -309,7 +326,9 @@ def phase_forward() -> None:
 # (e) the main path: GPT-2-small train steps
 # ---------------------------------------------------------------------------
 
-def _run_steps(model, n, batch):
+def _run_steps(model, n, batch, around_last=contextlib.nullcontext):
+    """n steps from a fresh optimizer state; the last one runs inside
+    ``around_last()`` (the profiler in phase (e))."""
     from ray_tpu_torch.models import gpt_loss
     from ray_tpu_torch.train import adamw, init_train_state, make_train_step
     opt = adamw(3e-4)
@@ -317,14 +336,15 @@ def _run_steps(model, n, batch):
     step = make_train_step(gpt_loss, opt)
     from ray_tpu_torch.ops.attention import KERNELS
     losses, norms, times, counts = [], [], [], []
-    for _ in range(n):
+    for i in range(n):
         before = {k: kern.launches for k, kern in KERNELS.items()}
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch)
-        loss = float(metrics["loss"])      # host readback ends the step
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+        with around_last() if i == n - 1 else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            loss = float(metrics["loss"])  # host readback ends the step
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
         losses.append(loss)
         norms.append(float(metrics["grad_norm"]))
         counts.append({k: kern.launches - before[k]
@@ -360,6 +380,49 @@ def _control_step(cfg, state_dict, batch, attention):
     finally:
         G.flash_attention = saved
     return loss[0], norm[0]
+
+
+def _device_us(ev) -> float:
+    """Self device time of a profiler entry, in us (the attribute's name
+    differs between PyTorch versions)."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(ev, attr):
+            return float(getattr(ev, attr))
+    return 0.0
+
+
+def _profile_step(model, batch) -> None:
+    """One warm-up step, then one step under torch.profiler: each kernel's
+    device time in the step, the top 10 device ops by time, and the
+    kernels' share of the step's device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    _, _, times, counts = _run_steps(model, 2, batch, around_last=lambda: prof)
+    ops = [(e.key, e.count, _device_us(e) / 1e3)
+           for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    device_ms = sum(ms for _, _, ms in ops)
+    log(f"[e] profile of one flash step (torch.profiler, after one warm-up "
+        f"step): {1e3 * times[-1]:.1f} ms on the host clock, device time "
+        f"{device_ms:.2f} ms over {len(ops)} device ops")
+    if not ops:
+        log("[e]   the profiler recorded no device time")
+        return
+    kernel_ms = 0.0
+    for name in REPLACES:
+        mine = [(c, ms) for key, c, ms in ops if name + "_" in key]
+        n, ms = sum(c for c, _ in mine), sum(ms for _, ms in mine)
+        kernel_ms += ms
+        log(f"[e]   {name}: {n} launches in the profile ({counts[-1][name]} "
+            f"counted), {ms:.3f} ms device, {ms / max(n, 1):.4f} ms each")
+    log(f"[e]   K1-K3 together: {kernel_ms:.3f} ms = "
+        f"{100 * kernel_ms / device_ms:.1f}% of the step's device time, "
+        f"{100 * kernel_ms / (1e3 * times[-1]):.1f}% of its host-clock time")
+    log("[e]   top 10 device ops by time (ms, calls, share of device time):")
+    for key, c, ms in sorted(ops, key=lambda x: -x[2])[:10]:
+        log(f"[e]     {ms:8.3f} ms {c:5d}x {100 * ms / device_ms:5.1f}%  "
+            f"{key[:110]}")
 
 
 def phase_train() -> dict:
@@ -427,6 +490,7 @@ def phase_train() -> dict:
     if passed:
         raise AssertionError(f"the step-0 gate passes wrong attention: "
                              f"{passed}")
+    _profile_step(flash, batch)   # after the counted steps: not counted
     del flash
     torch.cuda.empty_cache()
     return launches
@@ -506,8 +570,18 @@ def phase_timing() -> dict:
         out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
         torch.autograd.grad(out, (qg, kg, vg), do4)
 
+    out_g = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+
+    def sdpa_bwd():
+        # K2 + K3's work together (dQ, dK, dV), without a forward.
+        torch.autograd.grad(out_g, (qg, kg, vg), do4, retain_graph=True)
+
     lib = {"flash_fwd": _time_ms(sdpa_fwd, flush)}
-    lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = _time_ms(sdpa_fwd_bwd, flush)
+    lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = _time_ms(sdpa_bwd, flush)
+    fwd_bwd = _time_ms(sdpa_fwd_bwd, flush)
+    log(f"[f] scaled_dot_product_attention: forward {lib['flash_fwd']:.3f} "
+        f"ms, backward alone {lib['flash_bwd_dq']:.3f} ms, forward+backward "
+        f"{fwd_bwd:.3f} ms")
     out = {}
     for name, (kernel, plain) in runs.items():
         # Order plain, kernel, kernel, plain; each side reports its median.
@@ -545,7 +619,8 @@ def main() -> int:
     phase_forward()
     launches = phase_train()
     timing = phase_timing()
-    kernels = [dict(name=n, route="cuda", source=SOURCE, replaces=REPLACES[n],
+    kernels = [dict(name=n, route="cuda", source=SOURCES[n],
+                    replaces=REPLACES[n],
                     launches=launches[n], max_abs_err=errs[n],
                     library=LIBRARY_CALLS[n], **timing[n])
                for n in REPLACES]

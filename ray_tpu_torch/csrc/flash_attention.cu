@@ -1,52 +1,69 @@
 // Flash attention for Hopper (sm_90a): forward, dQ and dK/dV.
 //
 // Replaces the three Pallas kernels of ray_tpu/ops/attention.py:
-//   flash_fwd_kernel     <- _flash_kernel          (attention.py:53)
-//   flash_bwd_dq_kernel  <- _flash_bwd_dq_kernel   (attention.py:146)
-//   flash_bwd_dkv_kernel <- _flash_bwd_dkv_kernel  (attention.py:199)
+//   K1 forward  <- _flash_kernel          (attention.py:53)
+//   K2 dQ       <- _flash_bwd_dq_kernel   (attention.py:146)
+//   K3 dK/dV    <- _flash_bwd_dkv_kernel  (attention.py:199)
 // and computes what they compute, not how they tile it:
 //   * layouts q [BH, Sq, D], k/v [BH, Sk, D], lse/delta [BH, Sq] fp32;
 //   * causal masking aligned bottom-right (offset = Sk - Sq), masked logits
 //     set to the same finite NEG_INF = -1e30 as the JAX kernels, so a row
 //     whose visited keys are all masked gets p = 1 on each of them in the
 //     forward (mean of V) exactly as _flash_kernel does, and the backward
-//     kernels force p to 0 on masked entries (attention.py:178-181);
+//     kernels force p to 0 on masked entries (attention.py:178-181,
+//     :231-233);
 //   * the forward visits, per row, the keys of the whole block_k blocks up
 //     to its block_q block's diagonal (attention.py:101-106), so the Python
-//     block sizes are arguments here although the kernel tiles by 64;
+//     block sizes are arguments here although the kernels tile by 64;
 //   * dot inputs are rounded to the input type (bf16 or fp32) and products
-//     accumulate in fp32; p is rounded to v's type before P.V and dS to
-//     k's type before dS.K / dS^T.Q (attention.py:93, :186, :240); the
-//     softmax runs in fp32.
+//     accumulate in fp32; p is rounded to v's type before P.V, against the
+//     running max after each 64-key tile, and P / dS to the input type
+//     before dS.K, P^T.dO and dS^T.Q (attention.py:93, :186, :240); the
+//     softmax runs in fp32 and lse is in natural-log units.
 //
-// Design. One thread block of 256 threads per (bh, 64-row tile): a Q tile
-// for the forward and dQ, a K/V tile for dK/dV. The other operand streams
-// through shared memory in 64-row tiles, converted to fp32 on load (rows
-// padded to D+1 floats so the column reads hit distinct banks). The 16x16
-// threads each own a 4x4 patch of the 64x64 score tile (rows rg+16i, cols
-// cg+16j) and a 4 x D/16 patch of the output tile, so the row max and row
-// sum of the online softmax reduce over the 16 lanes of a half-warp with
-// shuffles. Ragged tiles (Sq or Sk not a multiple of 64) are masked here.
+// Two designs, picked by a fixed dispatch on dtype and head dim (below):
 //
-// What bounds it. At the main-path shape (BH = 96, S = 1024, D = 64, bf16,
-// causal) the least time on an H100 SXM is set by the bytes for the forward
-// (~51 MB at 3.35 TB/s, 15 us) and by the tensor-core rate for the two
-// backward kernels (19.4 and 25.8 GFLOP at 989 TFLOP/s, 20 and 26 us).
-// This first version does its products as fp32 FMAs on the CUDA cores, so
-// its own ceiling is the 67 TFLOP/s fp32 rate, and each FMA needs about
-// half a shared-memory load: it is bound by shared-memory bandwidth well
-// above either number. mma.sync / wgmma with TMA-fed tiles is the next
-// step (ROADMAP queue 2); this version is the simple, correct baseline.
+//   * bf16 at head dim 64 or 128, K1 and K3 (flash_wgmma.cuh): one
+//     warpgroup per 64-row tile, every product a bf16 `wgmma` with fp32
+//     accumulators, tiles bf16 in 128-byte-swizzled shared memory filled
+//     by cp.async through a 2-stage ring, P and dS fed to the second
+//     product from registers.
+//   * everything else, and K2 always (this file): 256 threads per (bh,
+//     64-row tile), products as fp32 FMAs on the CUDA cores from tiles
+//     widened to fp32 in shared memory (rows padded to D + 1 floats), loads
+//     synchronous. fp32 stays here because tensor cores would round its
+//     operands to TF32; bf16 at head dims 16 and 32 is off the main path.
+//
+// What bounds them. At the main-path shape (BH = 96, S = 1024, D = 64,
+// bf16, causal) the least time on an H100 SXM is set by the bytes for the
+// forward (~51 MB at 3.35 TB/s, 15 us) and by the tensor-core rate for
+// the two backward kernels (19.4 and 25.8 GFLOP at 989 TFLOP/s, 20 and
+// 26 us). The CUDA-core design is held to the 67 TFLOP/s fp32 rate and
+// below it by shared-memory reads (about one per FMA pair). The wgmma
+// design moves the products to the tensor cores; what remains in its way
+// is the softmax between them (one exp2 per score on the 16-per-clock
+// multi-function unit, the masking and the rescale) and the wait for each
+// product: a block does not overlap its own softmax with its next
+// product, only the other blocks on the SM do.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <initializer_list>
+
+#include "flash_common.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
-constexpr int kTile = 64;          // rows of Q and of K/V per tile
+using rtt::keys_visited;
+using rtt::kNegInf;
+
+constexpr int kTile = 64;          // rows of Q and of K/V per tile, keys per
+                                   // step of the forward
 constexpr int kThreads = 256;      // 16 x 16
-constexpr float kNegInf = -1e30f;  // NEG_INF of ray_tpu/ops/attention.py
 
 template <typename T> __device__ __forceinline__ float to_float(T x);
 template <> __device__ __forceinline__ float to_float<float>(float x) {
@@ -69,22 +86,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(
 // x rounded to T and back: the JAX kernels' `.astype(dtype)` before a dot.
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_float<T>(from_float<T>(x));
-}
-
-__device__ __forceinline__ int floor_div(int a, int b) {
-  int q = a / b;
-  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
-}
-
-// Keys that _flash_kernel visits for query `row`: whole block_k blocks up
-// to the diagonal of the row's block of block_q rows.
-__device__ __forceinline__ int keys_visited(int row, int seq_k, int offset,
-                                            int block_q, int block_k,
-                                            bool causal) {
-  if (!causal) return seq_k;
-  int qb = row / block_q;
-  int nb = floor_div((qb + 1) * block_q + offset + block_k - 1, block_k);
-  return min(seq_k, max(0, nb * block_k));
 }
 
 // Rows [r0, r0 + kTile) of a [seq, D] matrix into shared memory as fp32,
@@ -112,7 +113,7 @@ __device__ __forceinline__ float group_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// K1: forward. o = softmax(q k^T * scale) v, lse = m + log(l).
+// K1, CUDA cores: forward. o = softmax(q k^T * scale) v, lse = m + log(l).
 // ---------------------------------------------------------------------------
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -236,7 +237,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K2: dQ = scale * dS K, dS = p * (dO V^T - delta), p = exp(s - lse).
+// K2, CUDA cores: dQ = scale * dS K, dS = p * (dO V^T - delta), p = exp(s - lse).
 // ---------------------------------------------------------------------------
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -346,7 +347,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K3: dV = P^T dO, dK = scale * dS^T Q, for one K/V tile over the Q tiles.
+// K3, CUDA cores: dV = P^T dO, dK = scale * dS^T Q, for one K/V tile over
+// the Q tiles.
 // ---------------------------------------------------------------------------
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -530,10 +532,64 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// K2 has one design: bf16 at every head dim runs on the CUDA cores.
+template <int D>
+cudaError_t bwd_dq_bf16(const void* q, const void* k, const void* v,
+                        const void* dout, const void* lse, const void* delta,
+                        void* dq, int bh, int seq_q, int seq_k, float scale,
+                        int causal, cudaStream_t stream) {
+  return bwd_dq<__nv_bfloat16, D>(q, k, v, dout, lse, delta, dq, bh, seq_q,
+                                  seq_k, scale, causal, stream);
+}
+
+// Tensor-core launchers (bf16, head dim 64 or 128). cp.async moves 16-byte
+// chunks, so q, k, v and dO must start on a 16-byte boundary.
+inline bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
+}
+
+template <int D>
+cudaError_t fwd_tc(const void* q, const void* k, const void* v, void* o,
+                   void* lse, int bh, int seq_q, int seq_k, float scale,
+                   int causal, int block_q, int block_k, cudaStream_t stream) {
+  if (!aligned16({q, k, v, o})) return cudaErrorMisalignedAddress;
+  auto kernel = rtt::tc::flash_fwd_tc_kernel<D>;
+  const size_t smem = rtt::tc::fwd_smem_bytes<D>();
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(tiles(seq_q), bh), rtt::tc::kThreads, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, (float*)lse, seq_q, seq_k,
+      scale, causal, block_q, block_k);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t bwd_dkv_tc(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dk, void* dv, int bh, int seq_q, int seq_k,
+                       float scale, int causal, cudaStream_t stream) {
+  if (!aligned16({q, k, v, dout, dk, dv})) return cudaErrorMisalignedAddress;
+  auto kernel = rtt::tc::flash_bwd_dkv_tc_kernel<D>;
+  const size_t smem = rtt::tc::dkv_smem_bytes<D>();
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(tiles(seq_k), bh), rtt::tc::kThreads, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout,
+      (const float*)lse, (const float*)delta, (__nv_bfloat16*)dk,
+      (__nv_bfloat16*)dv, seq_q, seq_k, scale, causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. head_dim in {16, 32, 64, 128}.
-#define RTT_DISPATCH(FN, ...)                                              \
+// dtype: 0 = float32, 1 = bfloat16. head_dim in {16, 32, 64, 128}. TC_FN
+// is the tensor-core design for bf16 at head dims 64 and 128 (FN where a
+// kernel has none); everything else runs FN, the CUDA-core design.
+#define RTT_DISPATCH(FN, TC_FN, ...)                                       \
   do {                                                                     \
     if (bh <= 0 || seq_q <= 0 || seq_k <= 0 || bh > 65535)                 \
       return (int)cudaErrorInvalidValue;                                   \
@@ -549,8 +605,8 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
       switch (head_dim) {                                                  \
         case 16: return (int)FN<__nv_bfloat16, 16>(__VA_ARGS__, s);        \
         case 32: return (int)FN<__nv_bfloat16, 32>(__VA_ARGS__, s);        \
-        case 64: return (int)FN<__nv_bfloat16, 64>(__VA_ARGS__, s);        \
-        case 128: return (int)FN<__nv_bfloat16, 128>(__VA_ARGS__, s);      \
+        case 64: return (int)TC_FN<64>(__VA_ARGS__, s);                    \
+        case 128: return (int)TC_FN<128>(__VA_ARGS__, s);                  \
       }                                                                    \
     }                                                                      \
     return (int)cudaErrorInvalidValue;                                     \
@@ -563,7 +619,7 @@ int rtt_flash_fwd(int dtype, int head_dim, const void* q, const void* k,
                   int seq_k, float sm_scale, int causal, int block_q,
                   int block_k, void* stream) {
   if (block_q <= 0 || block_k <= 0) return (int)cudaErrorInvalidValue;
-  RTT_DISPATCH(fwd, q, k, v, o, lse, bh, seq_q, seq_k, sm_scale, causal,
+  RTT_DISPATCH(fwd, fwd_tc, q, k, v, o, lse, bh, seq_q, seq_k, sm_scale, causal,
                block_q, block_k);
 }
 
@@ -571,7 +627,7 @@ int rtt_flash_bwd_dq(int dtype, int head_dim, const void* q, const void* k,
                      const void* v, const void* dout, const void* lse,
                      const void* delta, void* dq, int bh, int seq_q,
                      int seq_k, float sm_scale, int causal, void* stream) {
-  RTT_DISPATCH(bwd_dq, q, k, v, dout, lse, delta, dq, bh, seq_q, seq_k,
+  RTT_DISPATCH(bwd_dq, bwd_dq_bf16, q, k, v, dout, lse, delta, dq, bh, seq_q, seq_k,
                sm_scale, causal);
 }
 
@@ -580,7 +636,7 @@ int rtt_flash_bwd_dkv(int dtype, int head_dim, const void* q, const void* k,
                       const void* delta, void* dk, void* dv, int bh,
                       int seq_q, int seq_k, float sm_scale, int causal,
                       void* stream) {
-  RTT_DISPATCH(bwd_dkv, q, k, v, dout, lse, delta, dk, dv, bh, seq_q, seq_k,
+  RTT_DISPATCH(bwd_dkv, bwd_dkv_tc, q, k, v, dout, lse, delta, dk, dv, bh, seq_q, seq_k,
                sm_scale, causal);
 }
 

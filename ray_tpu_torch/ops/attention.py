@@ -36,7 +36,7 @@ NEG_INF = -1e30
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
-KERNEL_TILE = 64   # kTile of csrc/flash_attention.cu: keys per step of K1
+KERNEL_TILE = 64   # keys per step of K1: kTile and kFwdKeyTile in csrc/
 
 
 # ---------------------------------------------------------------------------

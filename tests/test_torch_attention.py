@@ -12,6 +12,9 @@ flash paths give 0 there (mha_reference gives mean(V)), so those shapes
 compare the port only against JAX's flash_attention.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -135,3 +138,18 @@ def test_plain_versions_agree_with_autograd_of_reference():
     _, grads = _torch_flash(q, k, v, w, True, 32, 32)
     for a, b in zip(grads, (tq.grad, tk.grad, tv.grad)):
         assert np.abs(a - b.numpy()).max() < GRAD_TOL
+
+
+def test_plain_forward_tiles_keys_as_the_kernels_do():
+    """flash_fwd_plain rounds p against the running max after every
+    KERNEL_TILE keys; both forward kernels (the CUDA-core kTile and the
+    tensor-core kFwdKeyTile) must step over keys by that many."""
+    csrc = Path(tat.__file__).resolve().parent.parent / "csrc"
+    found = {}
+    for path in sorted(csrc.glob("*.cu*")):
+        for name, value in re.findall(
+                r"constexpr int (kTile|kFwdKeyTile) = (\d+);",
+                path.read_text()):
+            found[name] = int(value)
+    assert found == {"kTile": tat.KERNEL_TILE,
+                     "kFwdKeyTile": tat.KERNEL_TILE}

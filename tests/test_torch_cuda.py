@@ -31,6 +31,11 @@ def card():
     (96, 32, 32, torch.float32, True, 32, 32),
     (64, 192, 16, torch.float32, False, 32, 64),
     (160, 96, 128, torch.bfloat16, True, 32, 32),
+    # bf16 at head dims 64 and 128 runs K1 and K3 on the tensor cores.
+    (64, 32, 64, torch.bfloat16, True, 64, 32),      # masked rows: mean V
+    (96, 224, 128, torch.bfloat16, False, 32, 32),
+    (96, 32, 64, torch.bfloat16, True, 32, 32),      # rows with no keys
+    (1024, 1024, 128, torch.bfloat16, True, 128, 128),
 ])
 def test_kernels_match_plain(card, sq, sk, d, dtype, causal, bq, bk):
     res = chip_smoke.check_case(3, sq, sk, d, dtype, causal, bq, bk, card)

@@ -23,16 +23,17 @@
 //
 // Two designs, picked by a fixed dispatch on dtype and head dim (below):
 //
-//   * bf16 at head dim 64 or 128, K1 and K3 (flash_wgmma.cuh): one
+//   * bf16 at head dim 64 or 128, K1, K2 and K3 (flash_wgmma.cuh): one
 //     warpgroup per 64-row tile, every product a bf16 `wgmma` with fp32
 //     accumulators, tiles bf16 in 128-byte-swizzled shared memory filled
-//     by cp.async through a 2-stage ring, P and dS fed to the second
+//     by cp.async through a 2-stage ring, P and dS fed to the last
 //     product from registers.
-//   * everything else, and K2 always (this file): 256 threads per (bh,
-//     64-row tile), products as fp32 FMAs on the CUDA cores from tiles
-//     widened to fp32 in shared memory (rows padded to D + 1 floats), loads
-//     synchronous. fp32 stays here because tensor cores would round its
-//     operands to TF32; bf16 at head dims 16 and 32 is off the main path.
+//   * fp32, and bf16 at head dims 16 and 32 (this file): 256 threads per
+//     (bh, 64-row tile), products as fp32 FMAs on the CUDA cores from
+//     tiles widened to fp32 in shared memory (rows padded to D + 1
+//     floats), loads synchronous. fp32 stays here because tensor cores
+//     would round its operands to TF32; bf16 at head dims 16 and 32 is off
+//     the main path.
 //
 // What bounds them. At the main-path shape (BH = 96, S = 1024, D = 64,
 // bf16, causal) the least time on an H100 SXM is set by the bytes for the
@@ -532,18 +533,9 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// K2 has one design: bf16 at every head dim runs on the CUDA cores.
-template <int D>
-cudaError_t bwd_dq_bf16(const void* q, const void* k, const void* v,
-                        const void* dout, const void* lse, const void* delta,
-                        void* dq, int bh, int seq_q, int seq_k, float scale,
-                        int causal, cudaStream_t stream) {
-  return bwd_dq<__nv_bfloat16, D>(q, k, v, dout, lse, delta, dq, bh, seq_q,
-                                  seq_k, scale, causal, stream);
-}
-
 // Tensor-core launchers (bf16, head dim 64 or 128). cp.async moves 16-byte
-// chunks, so q, k, v and dO must start on a 16-byte boundary.
+// chunks, so q, k, v and dO must start on a 16-byte boundary; the outputs
+// are held to the same.
 inline bool aligned16(std::initializer_list<const void*> ptrs) {
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
@@ -563,6 +555,24 @@ cudaError_t fwd_tc(const void* q, const void* k, const void* v, void* o,
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (__nv_bfloat16*)o, (float*)lse, seq_q, seq_k,
       scale, causal, block_q, block_k);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t bwd_dq_tc(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dq, int bh, int seq_q, int seq_k, float scale,
+                      int causal, cudaStream_t stream) {
+  if (!aligned16({q, k, v, dout, dq})) return cudaErrorMisalignedAddress;
+  auto kernel = rtt::tc::flash_bwd_dq_tc_kernel<D>;
+  const size_t smem = rtt::tc::dq_smem_bytes<D>();
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(tiles(seq_q), bh), rtt::tc::kThreads, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout,
+      (const float*)lse, (const float*)delta, (__nv_bfloat16*)dq, seq_q,
+      seq_k, scale, causal);
   return cudaGetLastError();
 }
 
@@ -587,8 +597,8 @@ cudaError_t bwd_dkv_tc(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. head_dim in {16, 32, 64, 128}. TC_FN
-// is the tensor-core design for bf16 at head dims 64 and 128 (FN where a
-// kernel has none); everything else runs FN, the CUDA-core design.
+// is the tensor-core design for bf16 at head dims 64 and 128; everything
+// else runs FN, the CUDA-core design.
 #define RTT_DISPATCH(FN, TC_FN, ...)                                       \
   do {                                                                     \
     if (bh <= 0 || seq_q <= 0 || seq_k <= 0 || bh > 65535)                 \
@@ -627,8 +637,8 @@ int rtt_flash_bwd_dq(int dtype, int head_dim, const void* q, const void* k,
                      const void* v, const void* dout, const void* lse,
                      const void* delta, void* dq, int bh, int seq_q,
                      int seq_k, float sm_scale, int causal, void* stream) {
-  RTT_DISPATCH(bwd_dq, bwd_dq_bf16, q, k, v, dout, lse, delta, dq, bh, seq_q, seq_k,
-               sm_scale, causal);
+  RTT_DISPATCH(bwd_dq, bwd_dq_tc, q, k, v, dout, lse, delta, dq, bh, seq_q,
+               seq_k, sm_scale, causal);
 }
 
 int rtt_flash_bwd_dkv(int dtype, int head_dim, const void* q, const void* k,
@@ -636,8 +646,8 @@ int rtt_flash_bwd_dkv(int dtype, int head_dim, const void* q, const void* k,
                       const void* delta, void* dk, void* dv, int bh,
                       int seq_q, int seq_k, float sm_scale, int causal,
                       void* stream) {
-  RTT_DISPATCH(bwd_dkv, bwd_dkv_tc, q, k, v, dout, lse, delta, dk, dv, bh, seq_q, seq_k,
-               sm_scale, causal);
+  RTT_DISPATCH(bwd_dkv, bwd_dkv_tc, q, k, v, dout, lse, delta, dk, dv, bh,
+               seq_q, seq_k, sm_scale, causal);
 }
 
 const char* rtt_error_string(int err) {

@@ -5,11 +5,13 @@ its three CUDA kernels (the tensors' device decides), and JAX's runs its
 Pallas kernels in interpret mode, as tests/test_parallel.py::TestAttention
 runs them. Inputs come from a numpy seed and go to both as numpy arrays.
 
-Tolerances, fp32 throughout: 2e-5 on forward values and 2e-4 on grads,
-the bounds TestAttention holds the Pallas kernels to against
-mha_reference. At causal seq_q > seq_k the first rows see no key; both
-flash paths give 0 there (mha_reference gives mean(V)), so those shapes
-compare the port only against JAX's flash_attention.
+Tolerances in fp32: 2e-5 on forward values and 2e-4 on grads, the bounds
+TestAttention holds the Pallas kernels to against mha_reference. At causal
+seq_q > seq_k the first rows see no key; both flash paths give 0 there
+(mha_reference gives mean(V)), so those shapes compare the port only
+against JAX's flash_attention. In bf16 (test_flash_matches_jax_bf16) the
+bound is the one the card holds each kernel to against its plain version
+(chip_smoke.py's RTOL note).
 """
 
 import re
@@ -83,6 +85,83 @@ def test_flash_matches_jax(jx, sq, sk, d, causal, bq, bk):
     assert np.abs(t_out - j_out).max() < FWD_TOL
     for name, a, b in zip("qkv", t_grads, j_grads):
         assert np.abs(a - b).max() < GRAD_TOL, name
+
+
+# bf16 at the main path's head dims, where the card runs the tensor-core
+# kernels: (head_dim, causal) at seq 128, blocks 64.
+BF16_CASES = [(64, True), (64, False), (128, True), (128, False)]
+MAX_DIFFERING = 0.03   # share of bf16 elements not equal bit for bit
+
+
+@pytest.mark.parametrize("d,causal", BF16_CASES)
+def test_flash_matches_jax_bf16(jx, d, causal):
+    """The plain versions, which the card holds the kernels to, round where
+    the Pallas kernels round: p to bf16 before P.V against the running max
+    of each 64-key block, P and dS to bf16 before dS.K, P^T.dO and dS^T.Q.
+
+    Tolerance, element by element: |port - jax| <= 2^-7 (|jax| + |W||X|)
+    + E, with W X the output's defining product in absolute values (P V,
+    dS K, dS^T Q, P^T dO) and E the bound of dP's fp32 summation order for
+    dQ and dK, as chip_smoke.check_case holds a kernel to its plain
+    version. The two sides round at the same points and differ only in
+    fp32 summation order, which can flip one bf16 rounding (one ulp, 2^-7
+    relative) of an output element or of a weight of P or dS. One ulp of
+    each element alone does not hold: a flipped weight moves an element
+    that is small by cancellation by many of its ulps, and in a row that
+    sees one key dS is fp32 rounding noise (dP - delta cancels), which E
+    covers.
+
+    That bound alone would pass a plain version that skips a rounding
+    point (the error of one skipped rounding is within it), so each output
+    must also equal JAX's bit for bit in all but MAX_DIFFERING of its
+    elements. Order flips touch about 1% of them here, most in dQ's row 0,
+    whose dS is noise; a skipped rounding of P or dS touches a quarter or
+    more.
+    """
+    import chip_smoke
+    import jax
+    import jax.numpy as jnp
+    from ray_tpu.ops.attention import flash_attention
+
+    q, k, v, w = (jnp.asarray(x, dtype=jnp.bfloat16)
+                  for x in _qkv(d + int(causal), 1, 2, 128, 128, d))
+
+    def loss(q, k, v):
+        out = flash_attention(q, k, v, causal=causal, block_q=64,
+                              block_k=64, interpret=True)
+        return jnp.sum(out.astype(jnp.float32) * w.astype(jnp.float32)), out
+
+    (_, j_out), j_grads = jax.value_and_grad(
+        loss, argnums=(0, 1, 2), has_aux=True)(q, k, v)
+
+    def flat(x):   # bf16 through fp32 numpy arrays: exact
+        t = torch.from_numpy(np.array(jnp.asarray(x, jnp.float32)))
+        return t.to(torch.bfloat16).reshape(2, 128, d)
+
+    tq, tk, tv, tw = (flat(x) for x in (q, k, v, w))
+    leaves = [t.view(1, 2, 128, d).clone().requires_grad_(True)
+              for t in (tq, tk, tv)]
+    t_out = tat.flash_attention(*leaves, causal=causal, block_q=64,
+                                block_k=64)
+    (t_out.float() * tw.view(1, 2, 128, d).float()).sum().backward()
+    assert t_out.dtype == torch.bfloat16
+
+    scale = 1.0 / np.sqrt(d)
+    o, lse = tat.flash_fwd_plain(tq, tk, tv, causal=causal, sm_scale=scale,
+                                 block_q=64, block_k=64)
+    delta = (tw.float() * o.float()).sum(-1)
+    mag = chip_smoke._magnitudes(tq, tk, tv, tw, lse, delta, causal, scale,
+                                 64, 64)
+    rtol = chip_smoke.RTOL[torch.bfloat16]
+    got = [t_out] + [t.grad for t in leaves]
+    want = [j_out] + list(j_grads)
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+        a, b = a.detach().reshape(2, 128, d), flat(b)
+        ratio = chip_smoke._bound_ratio(a, b, mag[name], rtol,
+                                        mag.get(name + "_sum", 0.0))
+        assert ratio <= 1.0, (name, ratio)
+        differ = float((a != b).float().mean())
+        assert differ <= MAX_DIFFERING, (name, differ)
 
 
 def test_fully_masked_rows_are_zero(jx):

@@ -39,7 +39,7 @@ def card():
 ])
 def test_kernels_match_plain(card, sq, sk, d, dtype, causal, bq, bk):
     res = chip_smoke.check_case(3, sq, sk, d, dtype, causal, bq, bk, card)
-    assert all(ok for _, _, ok in res.values()), res
+    assert all(ok for _, _, ok, _ in res.values()), res
 
 
 @pytest.mark.cuda

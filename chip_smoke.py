@@ -6,22 +6,32 @@ Phases, each of which raises on failure:
   (a) the device, and nvidia-smi's name and power limit for it;
   (b) build the CUDA kernels from ray_tpu_torch/csrc with nvcc;
   (c) hold each kernel against its plain PyTorch version on the card, at
-      the main-path shape and at small shapes (head_dim 16-128, causal on
-      and off, seq_q < seq_k and seq_q > seq_k, ragged tiles, rows with
-      no key or only masked keys, fp32 and bf16);
+      the main-path shape (B·H 96, also the MoE phase's), the GPT-2-medium
+      shape (B·H 128) and at small shapes (head_dim 16-128, causal on and
+      off, seq_q < seq_k and seq_q > seq_k, ragged tiles, rows with no key
+      or only masked keys, fp32 and bf16);
   (d) GPT-2-small gpt_forward at 8x1024: flash attention against the
       reference attention on the same weights;
   (e) the main path: AdamW(3e-4) steps of GPT-2 small (full remat) at
-      batch 8, seq 1024 through make_train_step, with each kernel's
-      launches counted; step 0 against the reference-attention step,
-      and two control steps with wrong attention that must fail that gate;
-      then one more step under torch.profiler: each kernel's device time,
-      the top device ops, and the kernels' share of the step;
+      batch 8, seq 1024 through the entry points of bench.py:bench_model
+      (build_mesh(MeshConfig(data=1)), init_train_state and
+      make_train_step with "dp"), with each kernel's launches counted;
+      step 0 against the reference-attention step, and two control steps
+      with wrong attention that must fail that gate; then one more step
+      under torch.profiler: each kernel's device time, the top device
+      ops, and the kernels' share of the step;
   (f) each kernel timed with CUDA events beside its plain version and
       PyTorch's scaled_dot_product_attention (forward for K1, backward
       alone for K2 and K3, forward+backward printed beside; timed only
       here, the port never calls it);
-  (g) one line {"kernels": [...]};
+  (i) GPT-2 small with MoE (4 experts, top-2, full remat) through the same
+      entry points: launches, losses, the aux loss, the routing flips
+      between flash and reference attention, and the step-0 gate against
+      reference steps that replay each run's routing, with its controls;
+  (j) GPT-2 medium (24 layers, 16 heads) with remat "dots": the forward
+      gate of (d), the train path of (i) without MoE, and step time and
+      peak memory beside a remat "full" run;
+  (g) one line {"kernels": [...]} (launches from the main path, e);
   (h) last line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without CUDA or without the package.
@@ -288,6 +298,10 @@ def phase_kernels() -> dict:
     res = run((bh, m["seq"], m["seq"], m["head_dim"], m["dtype"], True,
                128, 128), f"main shape bh={bh} s={m['seq']} "
                           f"d={m['head_dim']} bf16 causal")
+    # GPT-2 medium (phase j): 16 heads at head dim 64.
+    run((m["batch"] * 16, m["seq"], m["seq"], m["head_dim"], m["dtype"],
+         True, 128, 128), f"gpt2-medium shape bh={m['batch'] * 16} "
+                          f"s={m['seq']} d={m['head_dim']} bf16 causal")
     log(f"[c] tolerance: |kernel - plain| <= rtol (|plain| + |W||X|), rtol "
         f"fp32 {RTOL[torch.float32]:.0e} bf16 2^-7, plus for bf16 dQ and "
         f"dK p |dO||V|^T D 2^-22 through |K| and |Q|; |lse - plain| <= "
@@ -300,7 +314,7 @@ def phase_kernels() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# (d) GPT-2-small forward, flash vs reference attention
+# (d) forward, flash vs reference attention
 # ---------------------------------------------------------------------------
 
 def _models(cfg):
@@ -321,9 +335,9 @@ def _tokens(cfg, batch, seq):
                          device="cuda")
 
 
-def phase_forward() -> None:
+def phase_forward(cfg=None, tag="d", label="gpt2-small") -> None:
     from ray_tpu_torch.models import GPTConfig, gpt_forward
-    cfg = GPTConfig.gpt2_small()
+    cfg = cfg or GPTConfig.gpt2_small()
     flash, ref = _models(cfg)
     tokens = _tokens(cfg, MAIN["batch"], MAIN["seq"])
     with torch.no_grad():
@@ -336,9 +350,9 @@ def phase_forward() -> None:
         raise AssertionError(f"logits shape {tuple(lf.shape)}")
     err = float((lf.float() - lr.float()).abs().max())
     rel = err / float(lr.float().abs().max())
-    log(f"[d] gpt2-small gpt_forward 8x1024 bf16: logits {tuple(lf.shape)}, "
-        f"flash vs reference max |Δ| {err:.3e} = {rel:.2e} of max|logit| "
-        f"(tol {LOGITS_TOL:.0e})")
+    log(f"[{tag}] {label} gpt_forward 8x1024 bf16: logits "
+        f"{tuple(lf.shape)}, flash vs reference max |Δ| {err:.3e} = "
+        f"{rel:.2e} of max|logit| (tol {LOGITS_TOL:.0e})")
     if not rel <= LOGITS_TOL:
         raise AssertionError(f"flash logits differ from reference: {rel}")
     del flash, ref, lf, lr
@@ -346,23 +360,27 @@ def phase_forward() -> None:
 
 
 # ---------------------------------------------------------------------------
-# (e) the main path: GPT-2-small train steps
+# (e) the main path: GPT-2-small train steps; the train-path helpers that
+# the MoE (i) and GPT-2-medium (j) phases share
 # ---------------------------------------------------------------------------
 
-def _run_steps(model, n, batch, around_last=contextlib.nullcontext):
-    """n steps from a fresh optimizer state; the last one runs inside
-    ``around_last()`` (the profiler in phase (e))."""
+def _run_steps(model, n, batch, around=lambda i: contextlib.nullcontext()):
+    """n steps from a fresh optimizer state through the entry points of
+    bench.py:bench_model (build_mesh, init_train_state and make_train_step
+    with "dp"); step i runs inside ``around(i)``."""
     from ray_tpu_torch.models import gpt_loss
-    from ray_tpu_torch.train import adamw, init_train_state, make_train_step
-    opt = adamw(3e-4)
-    state = init_train_state(lambda: model, opt)
-    step = make_train_step(gpt_loss, opt)
     from ray_tpu_torch.ops.attention import KERNELS
+    from ray_tpu_torch.parallel import MeshConfig, build_mesh
+    from ray_tpu_torch.train import adamw, init_train_state, make_train_step
+    mesh = build_mesh(MeshConfig(data=1))
+    opt = adamw(3e-4)
+    state = init_train_state(lambda: model, opt, mesh, "dp")
+    step = make_train_step(gpt_loss, opt, mesh, "dp")
     losses, norms, times, counts = [], [], [], []
     for i in range(n):
         before = {k: kern.launches for k, kern in KERNELS.items()}
         torch.cuda.synchronize()
-        with around_last() if i == n - 1 else contextlib.nullcontext():
+        with around(i):
             t0 = time.perf_counter()
             state, metrics = step(state, batch)
             loss = float(metrics["loss"])  # host readback ends the step
@@ -390,19 +408,212 @@ def _diagonal_missed_attention(q, k, v, **_):
     return torch.matmul(probs.to(v.dtype), v)
 
 
-def _control_step(cfg, state_dict, batch, attention):
-    """Step 0 from the same weights with the model's flash attention
-    replaced by a wrong one: (loss, grad_norm)."""
+CONTROLS = (("attention zeroed", _zeroed_attention),
+            ("diagonal missed", _diagonal_missed_attention))
+
+
+@contextlib.contextmanager
+def _moe_routing(model, record=None, replay=None):
+    """Inside the body: ``record`` takes each MoE layer's top-k indices of
+    its first forward ({layer: [b,s,k]}) and, under "aux", the first aux
+    loss; ``replay`` ({layer: indices}) routes every layer by the given
+    indices instead of its own top-k, with the weights renormalised from
+    this run's router probabilities at those experts."""
+    from ray_tpu_torch.models import gpt as G
+    if not model.cfg.n_experts:
+        yield
+        return
+    layer_of = {id(layer.moe): i for i, layer in enumerate(model.layers)}
+    route, switch_aux = G._route, G._switch_aux
+
+    def routed(moe, x, cfg):
+        probs, weights, idx = route(moe, x, cfg)
+        i = layer_of[id(moe)]
+        if replay is not None:
+            idx = replay[i]
+            picked = probs.gather(-1, idx)
+            weights = picked / picked.sum(dim=-1, keepdim=True)
+        if record is not None:
+            record.setdefault(i, idx.detach().clone())
+        return probs, weights, idx
+
+    def aux(*args):
+        out = switch_aux(*args)
+        if record is not None:
+            record.setdefault("aux", float(out.detach()))
+        return out
+
+    G._route, G._switch_aux = routed, aux
+    try:
+        yield
+    finally:
+        G._route, G._switch_aux = route, switch_aux
+
+
+def _step0(cfg, state_dict, batch, attention=None, record=None,
+           replay=None):
+    """Step 0 from ``state_dict``, with the model's flash attention
+    replaced by ``attention`` where given, and MoE routing recorded or
+    replayed: (loss, grad_norm)."""
     from ray_tpu_torch.models import gpt as G
     model = G.gpt_init(cfg, device="cuda")
     model.load_state_dict(state_dict)
     saved = G.flash_attention
-    G.flash_attention = attention
+    if attention is not None:
+        G.flash_attention = attention
     try:
-        loss, norm, _, _ = _run_steps(model, 1, batch)
+        with _moe_routing(model, record, replay):
+            loss, norm, _, _ = _run_steps(model, 1, batch)
     finally:
         G.flash_attention = saved
     return loss[0], norm[0]
+
+
+def _expected_launches(cfg) -> dict:
+    """Per step: K1 once per layer in the forward and once more in the
+    backward's recompute (remat "full" and "dots"), K2 and K3 once per
+    layer."""
+    from ray_tpu_torch.models.gpt import _remat_policy
+    n = cfg.n_layers
+    fwd = n if _remat_policy(cfg) == "none" else 2 * n
+    return {"flash_fwd": fwd, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+
+
+def _gate(tag, loss, norm, ref, label) -> bool:
+    dl = abs(loss - ref[0]) / abs(ref[0])
+    dn = abs(norm - ref[1]) / abs(ref[1])
+    ok = dl <= LOSS_RTOL and dn <= GRAD_NORM_RTOL
+    log(f"[{tag}] step 0 {label}: loss {loss:.5f} rel {dl:.2e} (tol "
+        f"{LOSS_RTOL:.0e}), grad_norm {norm:.5f} rel {dn:.2e} (tol "
+        f"{GRAD_NORM_RTOL:.0e}): {'pass' if ok else 'fail'}")
+    return ok
+
+
+def _flips(a: dict, b: dict, n_layers: int) -> tuple:
+    """(tokens whose top-k set differs, tokens whose top-1 differs, per
+    layer the first count) between two recorded routings."""
+    per_layer, top1 = [], 0
+    for i in range(n_layers):
+        sa, sb = a[i].sort(dim=-1).values, b[i].sort(dim=-1).values
+        per_layer.append(int((sa != sb).any(dim=-1).sum()))
+        top1 += int((a[i][..., 0] != b[i][..., 0]).sum())
+    return sum(per_layer), top1, per_layer
+
+
+def train_path(tag, cfg, label, steps=STEPS, ref_steps=REF_STEPS,
+               around=lambda i: contextlib.nullcontext()) -> dict:
+    """One path of the trainer at batch 8, seq 1024, AdamW(3e-4), random
+    weights from SEED: ``steps`` flash-attention steps with every kernel's
+    count set to 0 just before and read just after, checked against
+    ``_expected_launches`` in every step; finite, falling losses;
+    ``ref_steps`` reference-attention steps; and the step-0 gate, flash
+    against reference, which the two wrong-attention controls must fail.
+
+    For MoE, routing is discontinuous (top-k), and flash and reference
+    attention, which agree to bf16 rounding, can send a token to other
+    experts. So each compared step 0 (flash, each control) records its
+    routing, the gate's reference step 0 replays that routing, and the
+    gate compares attention alone; the flips between the flash and the
+    free reference run, and the free run's readings, are printed."""
+    from ray_tpu_torch.models import count_params
+    from ray_tpu_torch.models.gpt import _remat_policy
+    from ray_tpu_torch.ops.attention import KERNELS
+    moe = cfg.n_experts > 0
+    flash, ref = _models(cfg)
+    # The initial weights, for the control and replay steps; kept on the
+    # host so that the flash run's peak memory is the step's own.
+    init = {k: v.detach().cpu() for k, v in flash.state_dict().items()}
+    bs, seq = MAIN["batch"], MAIN["seq"]
+    batch = {"tokens": _tokens(cfg, bs, seq + 1)}
+    log(f"[{tag}] {label} {count_params(flash):,} params, bs {bs} seq {seq}, "
+        f"remat {_remat_policy(cfg)}, AdamW(3e-4), entry points build_mesh"
+        f"(MeshConfig(data=1)) -> init_train_state(..., mesh, 'dp') -> "
+        f"make_train_step(..., mesh, 'dp')")
+
+    routing = {}
+    controls = {}
+    for name, fn in CONTROLS:
+        routing[name] = {}
+        controls[name] = _step0(cfg, init, batch, fn, record=routing[name])
+    routing["reference"] = {}
+    with _moe_routing(ref, record=routing["reference"]):
+        r_loss, r_norm, r_times, _ = _run_steps(ref, ref_steps, batch)
+    del ref
+    torch.cuda.empty_cache()
+
+    routing["flash"] = {}
+    record = _moe_routing(flash, record=routing["flash"])
+    for kern in KERNELS.values():
+        kern.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    f_loss, f_norm, f_times, f_counts = _run_steps(
+        flash, steps, batch,
+        around=lambda i: record if i == 0 else around(i))
+    launches = {k: kern.launches for k, kern in KERNELS.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    def ms(ts):
+        return 1e3 * statistics.median(ts[1:])
+    for i in range(steps):
+        log(f"[{tag}] flash step {i}: loss {f_loss[i]:.5f} grad_norm "
+            f"{f_norm[i]:.5f} {1e3 * f_times[i]:.1f} ms launches "
+            f"{f_counts[i]}")
+    for i in range(ref_steps):
+        log(f"[{tag}] reference step {i}: loss {r_loss[i]:.5f} grad_norm "
+            f"{r_norm[i]:.5f} {1e3 * r_times[i]:.1f} ms")
+    f_ms, r_ms = ms(f_times), ms(r_times)
+    log(f"[{tag}] flash: step {f_ms:.1f} ms (median of steps 1-"
+        f"{steps - 1}), {bs * seq / f_ms * 1e3:,.0f} tok/s, peak memory "
+        f"{peak_gb:.1f} GB")
+    log(f"[{tag}] reference: step {r_ms:.1f} ms (median of steps "
+        f"1-{ref_steps - 1}), {bs * seq / r_ms * 1e3:,.0f} tok/s")
+    log(f"[{tag}] launches over {steps} steps: {launches}")
+
+    expected = _expected_launches(cfg)
+    for i, c in enumerate(f_counts):
+        if c != expected:
+            raise AssertionError(f"{label} step {i} launches {c} != "
+                                 f"{expected}")
+    if not all(math.isfinite(x) for x in f_loss + f_norm):
+        raise AssertionError(f"non-finite loss or grad norm: {f_loss}")
+    if not f_loss[-1] < f_loss[0]:
+        raise AssertionError(f"loss did not fall: {f_loss}")
+
+    free = (r_loss[0], r_norm[0])
+    if moe:
+        aux = routing["flash"]["aux"]
+        log(f"[{tag}] step 0 aux loss (Switch, summed over {cfg.n_layers} "
+            f"layers): {aux:.5f} (perfect balance: {cfg.n_layers}; at most "
+            f"{cfg.n_layers * cfg.n_experts}); in the loss as 0.01 aux / "
+            f"n_layers = {0.01 * aux / cfg.n_layers:.5f}")
+        if not 0 < aux <= cfg.n_layers * cfg.n_experts:
+            raise AssertionError(f"aux loss {aux} outside (0, L e]")
+        total, top1, per_layer = _flips(routing["flash"],
+                                        routing["reference"], cfg.n_layers)
+        decisions = bs * seq * cfg.n_layers
+        log(f"[{tag}] routing flips, flash vs reference step 0: top-"
+            f"{cfg.expert_top_k} set differs for {total} of {decisions} "
+            f"token-layers ({100 * total / decisions:.3f}%), top-1 for "
+            f"{top1}; per layer {per_layer}")
+        _gate(tag, f_loss[0], f_norm[0], free,
+              "flash vs reference, routing free (printed, not gated)")
+        refs = {name: _step0(dataclasses.replace(cfg, attention="reference"),
+                             init, batch, replay=routing[name])
+                for name in ["flash"] + [n for n, _ in CONTROLS]}
+        how = "vs reference with its routing replayed"
+    else:
+        refs = {name: free for name in ["flash"] + [n for n, _ in CONTROLS]}
+        how = "vs reference"
+    if not _gate(tag, f_loss[0], f_norm[0], refs["flash"], f"flash {how}"):
+        raise AssertionError(f"{label}: step 0 differs from the reference "
+                             "step")
+    passed = [name for name, res in controls.items()
+              if _gate(tag, *res, refs[name], f"control ({name}) {how}")]
+    if passed:
+        raise AssertionError(f"{label}: the step-0 gate passes wrong "
+                             f"attention: {passed}")
+    return dict(model=flash, batch=batch, launches=launches, step_ms=f_ms,
+                peak_gb=peak_gb)
 
 
 def _device_us(ev) -> float:
@@ -414,107 +625,100 @@ def _device_us(ev) -> float:
     return 0.0
 
 
-def _profile_step(model, batch) -> None:
+def _profile_step(model, batch, tag="e", label="flash step", top=10
+                  ) -> None:
     """One warm-up step, then one step under torch.profiler: each kernel's
-    device time in the step, the top 10 device ops by time, and the
+    device time in the step, the top ``top`` device ops by time, and the
     kernels' share of the step's device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    _, _, times, counts = _run_steps(model, 2, batch, around_last=lambda: prof)
+    _, _, times, counts = _run_steps(
+        model, 2, batch,
+        around=lambda i: prof if i == 1 else contextlib.nullcontext())
     ops = [(e.key, e.count, _device_us(e) / 1e3)
            for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
     device_ms = sum(ms for _, _, ms in ops)
-    log(f"[e] profile of one flash step (torch.profiler, after one warm-up "
-        f"step): {1e3 * times[-1]:.1f} ms on the host clock, device time "
-        f"{device_ms:.2f} ms over {len(ops)} device ops")
+    log(f"[{tag}] profile of one {label} (torch.profiler, after one "
+        f"warm-up step): {1e3 * times[-1]:.1f} ms on the host clock, device "
+        f"time {device_ms:.2f} ms over {len(ops)} device ops")
     if not ops:
-        log("[e]   the profiler recorded no device time")
+        log(f"[{tag}]   the profiler recorded no device time")
         return
     kernel_ms = 0.0
     for name in REPLACES:
         mine = [(c, ms) for key, c, ms in ops if name + "_" in key]
         n, ms = sum(c for c, _ in mine), sum(ms for _, ms in mine)
         kernel_ms += ms
-        log(f"[e]   {name}: {n} launches in the profile ({counts[-1][name]} "
-            f"counted), {ms:.3f} ms device, {ms / max(n, 1):.4f} ms each")
-    log(f"[e]   K1-K3 together: {kernel_ms:.3f} ms = "
+        log(f"[{tag}]   {name}: {n} launches in the profile "
+            f"({counts[-1][name]} counted), {ms:.3f} ms device, "
+            f"{ms / max(n, 1):.4f} ms each")
+    log(f"[{tag}]   K1-K3 together: {kernel_ms:.3f} ms = "
         f"{100 * kernel_ms / device_ms:.1f}% of the step's device time, "
         f"{100 * kernel_ms / (1e3 * times[-1]):.1f}% of its host-clock time")
-    log("[e]   top 10 device ops by time (ms, calls, share of device time):")
-    for key, c, ms in sorted(ops, key=lambda x: -x[2])[:10]:
-        log(f"[e]     {ms:8.3f} ms {c:5d}x {100 * ms / device_ms:5.1f}%  "
+    log(f"[{tag}]   top {top} device ops by time (ms, calls, share of device "
+        f"time):")
+    for key, c, ms in sorted(ops, key=lambda x: -x[2])[:top]:
+        log(f"[{tag}]     {ms:8.3f} ms {c:5d}x {100 * ms / device_ms:5.1f}%  "
             f"{key[:110]}")
 
 
 def phase_train() -> dict:
-    from ray_tpu_torch.models import GPTConfig, count_params
-    from ray_tpu_torch.ops.attention import KERNELS
-    cfg = GPTConfig.gpt2_small()
-    flash, ref = _models(cfg)
-    bs, seq = MAIN["batch"], MAIN["seq"]
-    batch = {"tokens": _tokens(cfg, bs, seq + 1)}
-    log(f"[e] gpt2-small {count_params(flash):,} params, bs {bs} seq {seq}, "
-        f"remat full, AdamW(3e-4)")
-
-    r_loss, r_norm, r_times, _ = _run_steps(ref, REF_STEPS, batch)
-    del ref
-    controls = {name: _control_step(cfg, flash.state_dict(), batch, fn)
-                for name, fn in (("attention zeroed", _zeroed_attention),
-                                 ("diagonal missed",
-                                  _diagonal_missed_attention))}
+    """(e) GPT-2 small, dense, remat full: the main path."""
+    from ray_tpu_torch.models import GPTConfig
+    res = train_path("e", GPTConfig.gpt2_small(), "gpt2-small")
+    _profile_step(res["model"], res["batch"])  # after the counted steps
+    launches = res["launches"]
+    del res
     torch.cuda.empty_cache()
+    return launches
 
-    for kern in KERNELS.values():
-        kern.launches = 0
+
+def phase_moe() -> dict:
+    """(i) GPT-2 small with MoE (n_experts 4, top-2), remat full."""
+    from ray_tpu_torch.models import GPTConfig
+    cfg = dataclasses.replace(GPTConfig.gpt2_small(), n_experts=4,
+                              expert_top_k=2)
+    res = train_path("i", cfg, "gpt2-small moe e=4 top-2")
+    _profile_step(res["model"], res["batch"], "i", "moe step", top=5)
+    launches = res["launches"]
+    del res
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_medium() -> dict:
+    """(j) GPT-2 medium (d 1024, 24 layers, 16 heads: B·H 128) with remat
+    "dots": the forward gate of (d), the train path, and a "full" run of
+    the same steps for step time and peak memory beside it."""
+    from ray_tpu_torch.models import GPTConfig, gpt_init
+    cfg = dataclasses.replace(GPTConfig.gpt2_medium(), remat_policy="dots")
+    phase_forward(cfg, "j", "gpt2-medium")
+    res = train_path("j", cfg, "gpt2-medium remat dots")
+    _profile_step(res["model"], res["batch"], "j", "remat dots step", top=5)
+    launches, dots_ms, dots_gb = (res["launches"], res["step_ms"],
+                                  res["peak_gb"])
+    del res
+    torch.cuda.empty_cache()
+    full = dataclasses.replace(cfg, remat_policy="full")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    model = gpt_init(full, device="cuda", generator=gen)
+    batch = {"tokens": _tokens(full, MAIN["batch"], MAIN["seq"] + 1)}
     torch.cuda.reset_peak_memory_stats()
-    f_loss, f_norm, f_times, f_counts = _run_steps(flash, STEPS, batch)
-    launches = {k: kern.launches for k, kern in KERNELS.items()}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-
-    def ms(ts):
-        return 1e3 * statistics.median(ts[1:])
-    for i in range(STEPS):
-        log(f"[e] flash step {i}: loss {f_loss[i]:.5f} grad_norm "
-            f"{f_norm[i]:.5f} {1e3 * f_times[i]:.1f} ms launches {f_counts[i]}")
-    for i in range(REF_STEPS):
-        log(f"[e] reference step {i}: loss {r_loss[i]:.5f} grad_norm "
-            f"{r_norm[i]:.5f} {1e3 * r_times[i]:.1f} ms")
-    f_ms, r_ms = ms(f_times), ms(r_times)
-    log(f"[e] flash: step {f_ms:.1f} ms (median of steps 1-{STEPS - 1}), "
-        f"{bs * seq / f_ms * 1e3:,.0f} tok/s, peak memory {peak_gb:.1f} GB")
-    log(f"[e] reference: step {r_ms:.1f} ms (median of steps "
-        f"1-{REF_STEPS - 1}), {bs * seq / r_ms * 1e3:,.0f} tok/s")
-    log(f"[e] launches over {STEPS} steps: {launches}")
-
-    expected = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
-                "flash_bwd_dkv": cfg.n_layers}
-    for i, c in enumerate(f_counts):
-        if c != expected:
-            raise AssertionError(f"step {i} launches {c} != {expected}")
-    if not all(math.isfinite(x) for x in f_loss + f_norm):
-        raise AssertionError(f"non-finite loss or grad norm: {f_loss}")
-    if not f_loss[-1] < f_loss[0]:
-        raise AssertionError(f"loss did not fall: {f_loss}")
-    def gate(loss, norm, label):
-        dl = abs(loss - r_loss[0]) / abs(r_loss[0])
-        dn = abs(norm - r_norm[0]) / abs(r_norm[0])
-        ok = dl <= LOSS_RTOL and dn <= GRAD_NORM_RTOL
-        log(f"[e] step 0 {label} vs reference: loss {loss:.5f} rel {dl:.2e} "
-            f"(tol {LOSS_RTOL:.0e}), grad_norm {norm:.5f} rel {dn:.2e} "
-            f"(tol {GRAD_NORM_RTOL:.0e}): {'pass' if ok else 'fail'}")
-        return ok
-
-    if not gate(f_loss[0], f_norm[0], "flash"):
-        raise AssertionError("step 0 differs from the reference step")
-    passed = [name for name, res in controls.items()
-              if gate(*res, f"control ({name})")]
-    if passed:
-        raise AssertionError(f"the step-0 gate passes wrong attention: "
-                             f"{passed}")
-    _profile_step(flash, batch)   # after the counted steps: not counted
-    del flash
+    _, _, times, counts = _run_steps(model, REF_STEPS, batch)
+    full_ms = 1e3 * statistics.median(times[1:])
+    full_gb = torch.cuda.max_memory_allocated() / 1e9
+    if any(c != _expected_launches(full) for c in counts):
+        raise AssertionError(f"gpt2-medium remat full launches {counts}")
+    _profile_step(model, batch, "j", "remat full step", top=5)
+    tok = MAIN["batch"] * MAIN["seq"]
+    log(f"[j] gpt2-medium step, remat dots: {dots_ms:.1f} ms "
+        f"({tok / dots_ms * 1e3:,.0f} tok/s), peak memory {dots_gb:.1f} GB; "
+        f"remat full: {full_ms:.1f} ms ({tok / full_ms * 1e3:,.0f} tok/s), "
+        f"peak memory {full_gb:.1f} GB")
+    del model
     torch.cuda.empty_cache()
     return launches
 
@@ -642,6 +846,8 @@ def main() -> int:
     phase_forward()
     launches = phase_train()
     timing = phase_timing()
+    phase_moe()
+    phase_medium()
     kernels = [dict(name=n, route="cuda", source=SOURCES[n],
                     replaces=REPLACES[n],
                     launches=launches[n], max_abs_err=errs[n],

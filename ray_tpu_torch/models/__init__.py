@@ -1,4 +1,4 @@
-"""Models of the port (``ray_tpu/models``): the dense GPT."""
+"""Models of the port (``ray_tpu/models``): the GPT, dense or MoE."""
 
 from ray_tpu_torch.models.convert import params_from_jax, params_to_numpy
 from ray_tpu_torch.models.gpt import (GPT, GPTConfig, chunked_xent,

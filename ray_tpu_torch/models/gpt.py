@@ -8,13 +8,20 @@ in without transposes. Master weights are fp32 and are cast to
 ``ray_tpu_torch.ops.attention.flash_attention`` (CUDA kernels on the card)
 or ``mha_reference``.
 
-Dense models only in this slice: MoE, the ``dots`` remat policy and ring
-attention raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+Dense and MoE layers, remat ``full``, ``dots`` and ``none``. Ring
+attention raises ``NotImplementedError`` naming the ROADMAP item that
+brings it.
+
+Under a data-parallel step (``train/train_step.py``) the token count that
+normalises the loss and the expert counts of the MoE aux loss are summed
+over the data group (``parallel.mesh.all_sum``), and ``gpt_loss`` returns
+this rank's share of the whole batch's loss: the shares sum over the group
+to the loss that the JAX model gives for the whole batch.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
@@ -22,10 +29,12 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.ops.attention import flash_attention, mha_reference
+from ray_tpu_torch.parallel.mesh import all_sum
 
 
 @dataclass(frozen=True)
@@ -39,13 +48,14 @@ class GPTConfig:
     dtype: Any = torch.bfloat16
     rope_theta: float = 10000.0
     rmsnorm_eps: float = 1e-5
-    # MoE: 0 = dense MLPs. >0 is not ported yet (ROADMAP queue 1).
+    # MoE: 0 = dense MLPs; >0 = that many experts with top-k routing.
     n_experts: int = 0
     expert_top_k: int = 2
     remat: bool = True
     # None -> "full" if remat else "none". "full" recomputes each layer in
-    # backward (torch.utils.checkpoint per layer); "none" saves everything.
-    # "dots" is not ported yet (ROADMAP queue 1).
+    # backward (torch.utils.checkpoint per layer); "dots" saves the weight
+    # products' outputs and recomputes the rest (see _DOTS); "none" saves
+    # everything.
     remat_policy: Optional[str] = None
     attention: str = "flash"          # flash | reference (ring: not yet)
     # The JAX kernel's blocks: decide the ragged fallback (see
@@ -77,16 +87,8 @@ def _remat_policy(cfg: GPTConfig) -> str:
 
 
 def _check_supported(cfg: GPTConfig) -> None:
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "MoE (_moe_block) is not ported yet: ROADMAP queue 1, item "
-            "'MoE _moe_block'")
     policy = _remat_policy(cfg)
-    if policy == "dots":
-        raise NotImplementedError(
-            "remat_policy='dots' is not ported yet: ROADMAP queue 1, item "
-            "'remat dots'")
-    if policy not in ("full", "none"):
+    if policy not in ("full", "dots", "none"):
         raise ValueError(f"unknown remat_policy {policy!r} "
                          "(expected 'full' | 'dots' | 'none')")
     if cfg.attention == "ring":
@@ -136,13 +138,27 @@ class _MLP(nn.Module):
                              gen)
 
 
+class _MoE(nn.Module):
+    def __init__(self, cfg: GPTConfig, gen):
+        super().__init__()
+        d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+        self.router = _dense((d, e), 0.02, gen)
+        self.w_gate = _dense((e, d, ff), None, gen)
+        self.w_up = _dense((e, d, ff), None, gen)
+        self.w_down = _dense((e, ff, d),
+                             1.0 / math.sqrt(2 * cfg.n_layers * ff), gen)
+
+
 class _Layer(nn.Module):
     def __init__(self, cfg: GPTConfig, gen):
         super().__init__()
         self.ln1 = _Norm(cfg.d_model, gen.device)
         self.ln2 = _Norm(cfg.d_model, gen.device)
         self.attn = _Attn(cfg, gen)
-        self.mlp = _MLP(cfg, gen)
+        if cfg.n_experts > 0:
+            self.moe = _MoE(cfg, gen)
+        else:
+            self.mlp = _MLP(cfg, gen)
 
 
 class GPT(nn.Module):
@@ -230,27 +246,104 @@ def _mlp_block(layer: _Layer, x, cfg: GPTConfig):
     return (F.silu(gate) * up) @ m.w_down.to(dt)
 
 
+def _route(moe: _MoE, x, cfg: GPTConfig):
+    """The router: fp32 logits from ``x.float()``, softmax over experts,
+    top-k, weights renormalised over the k. -> (probs [b,s,e], weights
+    [b,s,k], expert indices [b,s,k])."""
+    logits = x.float() @ moe.router.float()
+    probs = torch.softmax(logits, dim=-1)
+    weights, idx = torch.topk(probs, cfg.expert_top_k, dim=-1)
+    return probs, weights / weights.sum(dim=-1, keepdim=True), idx
+
+
+def _moe_block(layer: _Layer, x, cfg: GPTConfig):
+    """Top-k routed MoE with dense dispatch: every expert runs on every
+    token and a one-hot combine [b,s,e] keeps the chosen k. Returns (y,
+    stats): stats [2, e] holds, per expert, the tokens whose top-1 choice
+    it is and the sum of its router probabilities (``_switch_aux``)."""
+    dt = cfg.dtype
+    m = layer.moe
+    b, s, d = x.shape
+    e, ff = cfg.n_experts, cfg.d_ff
+    probs, weights, idx = _route(m, x, cfg)
+    onehot = F.one_hot(idx, e).float()                         # [b,s,k,e]
+    combine = torch.einsum("bsk,bske->bse", weights, onehot)
+
+    def expert_in(w):
+        # "bsd,edf->bsef" as one product with no batch dims (aten.mm, as
+        # remat "dots" expects of a weight product).
+        return (x @ w.to(dt).permute(1, 0, 2).reshape(d, e * ff)).view(
+            b, s, e, ff)
+
+    act = F.silu(expert_in(m.w_gate)) * expert_in(m.w_up)
+    out = torch.einsum("bsef,efd->bsed", act, m.w_down.to(dt))
+    y = torch.einsum("bsed,bse->bsd", out.float(), combine)
+    stats = torch.stack([onehot[:, :, 0].sum(dim=(0, 1)),
+                         probs.sum(dim=(0, 1))])
+    return y.to(dt), stats
+
+
+def _switch_aux(stats, n_tokens: int, n_experts: int):
+    """Switch load-balancing loss summed over layers: per layer, e times
+    the sum over experts of density (the share of tokens whose top-1 is
+    the expert; no gradient) times router_prob (its mean router
+    probability). stats: [L, 2, e] from ``_moe_block``.
+
+    Both means are over the whole batch: the counts are summed over the
+    data group of the running step, and the result is this rank's share
+    (its tokens' probabilities against the global density), which sums
+    over the group to the whole batch's aux loss."""
+    n = all_sum(stats.new_tensor(float(n_tokens)))
+    density = all_sum(stats[:, 0].detach()) / n
+    router_prob = stats[:, 1] / n
+    return n_experts * torch.sum(density * router_prob)
+
+
 def _layer_fn(layer: _Layer, x, cfg: GPTConfig, positions):
+    """-> (x, MoE stats or None)."""
     h = x + _attention_block(
         layer, _rmsnorm(x, layer.ln1.scale, cfg.rmsnorm_eps), cfg, positions)
     normed = _rmsnorm(h, layer.ln2.scale, cfg.rmsnorm_eps)
-    return h + _mlp_block(layer, normed, cfg)
+    if cfg.n_experts > 0:
+        delta, stats = _moe_block(layer, normed, cfg)
+        return h + delta, stats
+    return h + _mlp_block(layer, normed, cfg), None
 
 
-def gpt_backbone(model: GPT, tokens) -> Tuple[torch.Tensor, float]:
-    """tokens: [B, S] -> (final hidden states [B, S, D], aux)."""
+# remat "dots", the counterpart of jax.checkpoint_policies.
+# dots_with_no_batch_dims_saveable: the outputs of aten.mm (every weight
+# product, the expert up-projections included) are saved; everything else
+# is recomputed in backward: batched products (aten.bmm, such as the
+# experts' down-projection with its batch dim e), norms, RoPE, SiLU and the
+# flash-attention forward, whose kernel output is no product (JAX
+# recomputes its pallas_call too).
+_DOTS = functools.partial(create_selective_checkpoint_contexts,
+                          [torch.ops.aten.mm.default])
+
+
+def gpt_backbone(model: GPT, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: [B, S] -> (final hidden states [B, S, D], aux): the MoE aux
+    loss summed over layers (``_switch_aux``), 0 for dense layers."""
     cfg = model.cfg
     b, s = tokens.shape
     x = model.embed.table.to(cfg.dtype)[tokens]
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
-    full = _remat_policy(cfg) == "full"
+    policy = _remat_policy(cfg)
+    stats = []
     for layer in model.layers:
-        if full:
-            x = checkpoint(_layer_fn, layer, x, cfg, positions,
-                           use_reentrant=False)
+        if policy == "none":
+            x, st = _layer_fn(layer, x, cfg, positions)
         else:
-            x = _layer_fn(layer, x, cfg, positions)
-    return _rmsnorm(x, model.final_norm.scale, cfg.rmsnorm_eps), 0.0
+            x, st = checkpoint(
+                _layer_fn, layer, x, cfg, positions, use_reentrant=False,
+                **({"context_fn": _DOTS} if policy == "dots" else {}))
+        if st is not None:
+            stats.append(st)
+    if stats:
+        aux = _switch_aux(torch.stack(stats), b * s, cfg.n_experts)
+    else:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _rmsnorm(x, model.final_norm.scale, cfg.rmsnorm_eps), aux
 
 
 def _head_weight(model: GPT):
@@ -301,16 +394,23 @@ def chunked_xent(x, w_head, targets, mask, chunk_rows: int = 16384):
 
 
 def gpt_loss(model: GPT, batch: Dict[str, torch.Tensor]):
-    """batch: {"tokens": [B, S+1]} -> mean next-token cross-entropy; target
-    positions below 0 are masked out."""
+    """batch: {"tokens": [B, S+1]} -> mean next-token cross-entropy, plus
+    0.01 aux / n_layers for MoE; target positions below 0 are masked out.
+
+    The mean is over the whole batch's unmasked targets: under a
+    data-parallel step the count is summed over the data group, and the
+    loss is this rank's share (module doc)."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    x, _ = gpt_backbone(model, inputs)
+    x, aux = gpt_backbone(model, inputs)
     b, s, d = x.shape
     mask = (targets >= 0).float()
     total, denom = chunked_xent(x.reshape(b * s, d), _head_weight(model),
                                 targets.reshape(b * s), mask.reshape(b * s))
-    return total / torch.clamp_min(denom, 1.0)
+    loss = total / torch.clamp_min(all_sum(denom), 1.0)
+    if model.cfg.n_experts > 0:
+        loss = loss + 0.01 * aux / model.cfg.n_layers
+    return loss
 
 
 def count_params(model: nn.Module) -> int:

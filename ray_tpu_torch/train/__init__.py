@@ -1,4 +1,5 @@
-"""Training of the port (``ray_tpu/train``): the single-device train step."""
+"""Training of the port (``ray_tpu/train``): the train step (one device, or
+``dp`` over a mesh)."""
 
 from ray_tpu_torch.train.train_step import (AdamW, TrainState, adamw,
                                             init_train_state,

@@ -56,3 +56,60 @@ def test_unsupported_input_raises(card):
     with pytest.raises(ValueError, match="head_dim"):
         A.flash_fwd(q, q, q, causal=True, sm_scale=1.0, block_q=64,
                     block_k=64)
+
+
+def _one_card_run(cfg, weights, toks, steps):
+    """The whole batch on one card through mesh=None: per step (loss,
+    grad_norm, {name: AdamW's gradient}), the final params, eval loss."""
+    from torch_dp_worker import _RecordingAdamW
+
+    from ray_tpu_torch.models import gpt as tgpt
+    from ray_tpu_torch.train import make_eval_step
+    from ray_tpu_torch.train import train_step as tts
+    model = tgpt.gpt_init(cfg, device="cuda")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in weights.items()})
+    opt = _RecordingAdamW(3e-4)
+    state = tts.init_train_state(lambda: model, opt)
+    step = tts.make_train_step(tgpt.gpt_loss, opt)
+    batch = {"tokens": torch.from_numpy(toks).long().cuda()}
+    names = [n for n, _ in model.named_parameters()]
+    out = []
+    for i in range(steps):
+        state, m = step(state, batch)
+        out.append((float(m["loss"]), float(m["grad_norm"]),
+                    {n: g.cpu().numpy() for n, g in zip(names, opt.seen[i])}))
+    final = {n: p.detach().cpu().numpy() for n, p in model.named_parameters()}
+    ev = float(make_eval_step(tgpt.gpt_loss)(model, batch))
+    return out, final, ev
+
+
+@pytest.mark.cuda
+@pytest.mark.timeout(600)
+def test_dp_across_cards_matches_one_card(card, tmp_path):
+    """The dp step with one NCCL rank per card of the host, against the
+    whole batch on one card: GPTConfig.tiny() in fp32 (the CUDA-core
+    kernels) with MoE, unequal masks (targets -1 in the last rank's rows
+    only), 3 AdamW steps, tests/test_torch_dp.py's bounds; the ranks'
+    params bit-identical. Needs two cards or more."""
+    world = torch.cuda.device_count()
+    if world < 2:
+        pytest.skip("needs two or more cards")
+    import dataclasses
+
+    import numpy as np
+    import test_torch_dp as D
+
+    from ray_tpu_torch.models import gpt as tgpt
+    cfg = dataclasses.replace(tgpt.GPTConfig.tiny(), dtype=torch.float32,
+                              n_experts=4)
+    init = tgpt.gpt_init(cfg, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+    weights = {n: p.detach().numpy().copy()
+               for n, p in init.state_dict().items()}
+    rows = 2 * world
+    toks = np.random.default_rng(3).integers(0, 512, (rows, 33)).astype(
+        np.int32)
+    toks[rows - 2:, 12:] = -1
+    ranks = D._run_ranks(tmp_path, weights, toks, 4, "full", 0,
+                         device="cuda", world=world)
+    D.assert_ranks_match(ranks, *_one_card_run(cfg, weights, toks, D.STEPS))

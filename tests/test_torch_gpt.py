@@ -187,8 +187,6 @@ def test_masked_targets_are_ignored(tiny):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(n_experts=4), "MoE"),
-    (dict(remat_policy="dots"), "remat dots"),
     (dict(attention="ring"), "ring_attention"),
 ])
 def test_unported_options_raise(kw, item):

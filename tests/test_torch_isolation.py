@@ -25,6 +25,8 @@ def test_package_imports_no_jax_and_no_ray_tpu():
     mods = _all_modules()
     assert "ray_tpu_torch.ops.attention" in mods
     assert "ray_tpu_torch.train.train_step" in mods
+    assert "ray_tpu_torch.parallel.mesh" in mods
+    assert "ray_tpu_torch.parallel.sharding" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

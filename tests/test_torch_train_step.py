@@ -178,7 +178,22 @@ def test_eval_step_matches_loss():
     assert float(ev) == float(tgpt.gpt_loss(model, batch).detach())
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(strategy="fsdp")])
-def test_sharding_is_not_ported(kw):
-    with pytest.raises(NotImplementedError, match="mesh.py/sharding.py"):
-        tts.make_train_step(tgpt.gpt_loss, tts.adamw(3e-4), **kw)
+@pytest.mark.parametrize("kw,error,match", [
+    (dict(mesh=object()), TypeError, "parallel.mesh.Mesh"),
+    (dict(mesh=object(), strategy="dp"), TypeError, "parallel.mesh.Mesh"),
+    (dict(strategy="fsdp"), NotImplementedError,
+     "ROADMAP queue 1, item 'FSDP2/TP/tp_fsdp execution'"),
+    (dict(strategy="tp"), NotImplementedError,
+     "ROADMAP queue 1, item 'FSDP2/TP/tp_fsdp execution'"),
+])
+def test_sharding_is_not_ported(kw, error, match):
+    """A mesh that is not the port's raises TypeError; the presets whose
+    execution is not ported raise NotImplementedError naming their ROADMAP
+    item, in every entry point."""
+    opt = tts.adamw(3e-4)
+    for build in (lambda: tts.make_train_step(tgpt.gpt_loss, opt, **kw),
+                  lambda: tts.make_eval_step(tgpt.gpt_loss, **kw),
+                  lambda: tts.init_train_state(
+                      lambda: pytest.fail("init_fn ran"), opt, **kw)):
+        with pytest.raises(error, match=match):
+            build()

@@ -31,6 +31,17 @@ Phases, each of which raises on failure:
   (j) GPT-2 medium (24 layers, 16 heads) with remat "dots": the forward
       gate of (d), the train path of (i) without MoE, and step time and
       peak memory beside a remat "full" run;
+  (k) the trainer's other strategies through the same entry points, in a
+      world of one (every mesh axis of size 1, as in JAX): "fsdp", "tp"
+      and "tp_fsdp" steps of GPT-2 small, each with 2L/L/L launches and
+      its step 0 held to (e)'s flash step 0 by (e)'s gate (with every
+      axis of size 1 they place nothing and run (e)'s dp code: the
+      entry points accept them; their placement runs across cards, in
+      tests/test_torch_cuda.py); "sp" with
+      attention="ring" (a ring of one: plain PyTorch partials, no kernel)
+      through (i)'s train path, gate and controls against reference
+      attention; and the dry run's "sp_ep" (ring attention and MoE, 4
+      experts) likewise, its reference steps replaying routing;
   (g) one line {"kernels": [...]} (launches from the main path, e);
   (h) last line {"ok": true, "device": {...}}.
 
@@ -364,18 +375,19 @@ def phase_forward(cfg=None, tag="d", label="gpt2-small") -> None:
 # the MoE (i) and GPT-2-medium (j) phases share
 # ---------------------------------------------------------------------------
 
-def _run_steps(model, n, batch, around=lambda i: contextlib.nullcontext()):
+def _run_steps(model, n, batch, around=lambda i: contextlib.nullcontext(),
+               strategy="dp"):
     """n steps from a fresh optimizer state through the entry points of
     bench.py:bench_model (build_mesh, init_train_state and make_train_step
-    with "dp"); step i runs inside ``around(i)``."""
+    with ``strategy``, "dp" there); step i runs inside ``around(i)``."""
     from ray_tpu_torch.models import gpt_loss
     from ray_tpu_torch.ops.attention import KERNELS
     from ray_tpu_torch.parallel import MeshConfig, build_mesh
     from ray_tpu_torch.train import adamw, init_train_state, make_train_step
     mesh = build_mesh(MeshConfig(data=1))
     opt = adamw(3e-4)
-    state = init_train_state(lambda: model, opt, mesh, "dp")
-    step = make_train_step(gpt_loss, opt, mesh, "dp")
+    state = init_train_state(lambda: model, opt, mesh, strategy)
+    step = make_train_step(gpt_loss, opt, mesh, strategy)
     losses, norms, times, counts = [], [], [], []
     for i in range(n):
         before = {k: kern.launches for k, kern in KERNELS.items()}
@@ -451,30 +463,32 @@ def _moe_routing(model, record=None, replay=None):
 
 
 def _step0(cfg, state_dict, batch, attention=None, record=None,
-           replay=None):
-    """Step 0 from ``state_dict``, with the model's flash attention
-    replaced by ``attention`` where given, and MoE routing recorded or
-    replayed: (loss, grad_norm)."""
+           replay=None, strategy="dp"):
+    """Step 0 from ``state_dict``, with the model's flash (or ring)
+    attention replaced by ``attention`` where given, and MoE routing
+    recorded or replayed: (loss, grad_norm)."""
     from ray_tpu_torch.models import gpt as G
     model = G.gpt_init(cfg, device="cuda")
     model.load_state_dict(state_dict)
-    saved = G.flash_attention
+    name = "ring_attention" if cfg.attention == "ring" else "flash_attention"
+    saved = getattr(G, name)
     if attention is not None:
-        G.flash_attention = attention
+        setattr(G, name, attention)
     try:
         with _moe_routing(model, record, replay):
-            loss, norm, _, _ = _run_steps(model, 1, batch)
+            loss, norm, _, _ = _run_steps(model, 1, batch, strategy=strategy)
     finally:
-        G.flash_attention = saved
+        setattr(G, name, saved)
     return loss[0], norm[0]
 
 
 def _expected_launches(cfg) -> dict:
     """Per step: K1 once per layer in the forward and once more in the
     backward's recompute (remat "full" and "dots"), K2 and K3 once per
-    layer."""
+    layer; none under ring attention (no kernel: JAX computes its partials
+    with einsums outside any Pallas kernel)."""
     from ray_tpu_torch.models.gpt import _remat_policy
-    n = cfg.n_layers
+    n = 0 if cfg.attention == "ring" else cfg.n_layers
     fwd = n if _remat_policy(cfg) == "none" else 2 * n
     return {"flash_fwd": fwd, "flash_bwd_dq": n, "flash_bwd_dkv": n}
 
@@ -501,7 +515,8 @@ def _flips(a: dict, b: dict, n_layers: int) -> tuple:
 
 
 def train_path(tag, cfg, label, steps=STEPS, ref_steps=REF_STEPS,
-               around=lambda i: contextlib.nullcontext()) -> dict:
+               around=lambda i: contextlib.nullcontext(),
+               strategy="dp") -> dict:
     """One path of the trainer at batch 8, seq 1024, AdamW(3e-4), random
     weights from SEED: ``steps`` flash-attention steps with every kernel's
     count set to 0 just before and read just after, checked against
@@ -525,19 +540,23 @@ def train_path(tag, cfg, label, steps=STEPS, ref_steps=REF_STEPS,
     init = {k: v.detach().cpu() for k, v in flash.state_dict().items()}
     bs, seq = MAIN["batch"], MAIN["seq"]
     batch = {"tokens": _tokens(cfg, bs, seq + 1)}
+    sname = getattr(strategy, "name", strategy)
+    att = cfg.attention
     log(f"[{tag}] {label} {count_params(flash):,} params, bs {bs} seq {seq}, "
-        f"remat {_remat_policy(cfg)}, AdamW(3e-4), entry points build_mesh"
-        f"(MeshConfig(data=1)) -> init_train_state(..., mesh, 'dp') -> "
-        f"make_train_step(..., mesh, 'dp')")
+        f"remat {_remat_policy(cfg)}, attention {cfg.attention}, AdamW(3e-4), "
+        f"entry points build_mesh(MeshConfig(data=1)) -> init_train_state("
+        f"..., mesh, {sname!r}) -> make_train_step(..., mesh, {sname!r})")
 
     routing = {}
     controls = {}
     for name, fn in CONTROLS:
         routing[name] = {}
-        controls[name] = _step0(cfg, init, batch, fn, record=routing[name])
+        controls[name] = _step0(cfg, init, batch, fn, record=routing[name],
+                                strategy=strategy)
     routing["reference"] = {}
     with _moe_routing(ref, record=routing["reference"]):
-        r_loss, r_norm, r_times, _ = _run_steps(ref, ref_steps, batch)
+        r_loss, r_norm, r_times, _ = _run_steps(ref, ref_steps, batch,
+                                                strategy=strategy)
     del ref
     torch.cuda.empty_cache()
 
@@ -548,21 +567,21 @@ def train_path(tag, cfg, label, steps=STEPS, ref_steps=REF_STEPS,
     torch.cuda.reset_peak_memory_stats()
     f_loss, f_norm, f_times, f_counts = _run_steps(
         flash, steps, batch,
-        around=lambda i: record if i == 0 else around(i))
+        around=lambda i: record if i == 0 else around(i), strategy=strategy)
     launches = {k: kern.launches for k, kern in KERNELS.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     def ms(ts):
         return 1e3 * statistics.median(ts[1:])
     for i in range(steps):
-        log(f"[{tag}] flash step {i}: loss {f_loss[i]:.5f} grad_norm "
+        log(f"[{tag}] {att} step {i}: loss {f_loss[i]:.5f} grad_norm "
             f"{f_norm[i]:.5f} {1e3 * f_times[i]:.1f} ms launches "
             f"{f_counts[i]}")
     for i in range(ref_steps):
         log(f"[{tag}] reference step {i}: loss {r_loss[i]:.5f} grad_norm "
             f"{r_norm[i]:.5f} {1e3 * r_times[i]:.1f} ms")
     f_ms, r_ms = ms(f_times), ms(r_times)
-    log(f"[{tag}] flash: step {f_ms:.1f} ms (median of steps 1-"
+    log(f"[{tag}] {att}: step {f_ms:.1f} ms (median of steps 1-"
         f"{steps - 1}), {bs * seq / f_ms * 1e3:,.0f} tok/s, peak memory "
         f"{peak_gb:.1f} GB")
     log(f"[{tag}] reference: step {r_ms:.1f} ms (median of steps "
@@ -591,20 +610,21 @@ def train_path(tag, cfg, label, steps=STEPS, ref_steps=REF_STEPS,
         total, top1, per_layer = _flips(routing["flash"],
                                         routing["reference"], cfg.n_layers)
         decisions = bs * seq * cfg.n_layers
-        log(f"[{tag}] routing flips, flash vs reference step 0: top-"
+        log(f"[{tag}] routing flips, {att} vs reference step 0: top-"
             f"{cfg.expert_top_k} set differs for {total} of {decisions} "
             f"token-layers ({100 * total / decisions:.3f}%), top-1 for "
             f"{top1}; per layer {per_layer}")
         _gate(tag, f_loss[0], f_norm[0], free,
-              "flash vs reference, routing free (printed, not gated)")
+              f"{att} vs reference, routing free (printed, not gated)")
         refs = {name: _step0(dataclasses.replace(cfg, attention="reference"),
-                             init, batch, replay=routing[name])
+                             init, batch, replay=routing[name],
+                             strategy=strategy)
                 for name in ["flash"] + [n for n, _ in CONTROLS]}
         how = "vs reference with its routing replayed"
     else:
         refs = {name: free for name in ["flash"] + [n for n, _ in CONTROLS]}
         how = "vs reference"
-    if not _gate(tag, f_loss[0], f_norm[0], refs["flash"], f"flash {how}"):
+    if not _gate(tag, f_loss[0], f_norm[0], refs["flash"], f"{att} {how}"):
         raise AssertionError(f"{label}: step 0 differs from the reference "
                              "step")
     passed = [name for name, res in controls.items()
@@ -613,7 +633,7 @@ def train_path(tag, cfg, label, steps=STEPS, ref_steps=REF_STEPS,
         raise AssertionError(f"{label}: the step-0 gate passes wrong "
                              f"attention: {passed}")
     return dict(model=flash, batch=batch, launches=launches, step_ms=f_ms,
-                peak_gb=peak_gb)
+                peak_gb=peak_gb, step0=(f_loss[0], f_norm[0]))
 
 
 def _device_us(ev) -> float:
@@ -664,15 +684,16 @@ def _profile_step(model, batch, tag="e", label="flash step", top=10
             f"{key[:110]}")
 
 
-def phase_train() -> dict:
-    """(e) GPT-2 small, dense, remat full: the main path."""
+def phase_train() -> tuple:
+    """(e) GPT-2 small, dense, remat full: the main path. -> (launches,
+    flash step 0's (loss, grad_norm))."""
     from ray_tpu_torch.models import GPTConfig
     res = train_path("e", GPTConfig.gpt2_small(), "gpt2-small")
     _profile_step(res["model"], res["batch"])  # after the counted steps
-    launches = res["launches"]
+    out = res["launches"], res["step0"]
     del res
     torch.cuda.empty_cache()
-    return launches
+    return out
 
 
 def phase_moe() -> dict:
@@ -721,6 +742,64 @@ def phase_medium() -> dict:
     del model
     torch.cuda.empty_cache()
     return launches
+
+
+K_STEPS = 3        # steps of each strategy in phase (k)
+
+
+def phase_strategies(e_step0) -> None:
+    """(k) the trainer's strategies in a world of one, at GPT-2-small
+    width, batch 8, seq 1024, bf16, remat full (module doc). ``e_step0``:
+    (e)'s flash step 0 (loss, grad_norm), the gate's reference for the
+    sharded presets, which run the same weights and tokens."""
+    from ray_tpu_torch.models import GPTConfig, gpt_init
+    from ray_tpu_torch.ops.attention import KERNELS
+    from ray_tpu_torch.parallel import ShardingStrategy
+    cfg = GPTConfig.gpt2_small()
+    batch = {"tokens": _tokens(cfg, MAIN["batch"], MAIN["seq"] + 1)}
+    expected = _expected_launches(cfg)
+    tok = MAIN["batch"] * MAIN["seq"]
+    for name in ("fsdp", "tp", "tp_fsdp"):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        model = gpt_init(cfg, device="cuda", generator=gen)
+        for kern in KERNELS.values():
+            kern.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        losses, norms, times, counts = _run_steps(model, K_STEPS, batch,
+                                                  strategy=name)
+        launches = {k: kern.launches for k, kern in KERNELS.items()}
+        step_ms = 1e3 * statistics.median(times[1:])
+        log(f"[k] {name}: losses {[round(x, 5) for x in losses]}, grad norms "
+            f"{[round(x, 5) for x in norms]}, step {step_ms:.1f} ms "
+            f"({tok / step_ms * 1e3:,.0f} tok/s, median of steps 1-"
+            f"{K_STEPS - 1}), peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB, launches over "
+            f"{K_STEPS} steps {launches}")
+        if any(c != expected for c in counts):
+            raise AssertionError(f"{name} launches {counts} != {expected}")
+        if not all(math.isfinite(x) for x in losses + norms):
+            raise AssertionError(f"{name}: non-finite loss or grad norm")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{name}: loss did not fall: {losses}")
+        if not _gate("k", losses[0], norms[0], e_step0,
+                     f"{name} vs (e)'s flash dp step 0"):
+            raise AssertionError(f"{name}: step 0 differs from (e)'s dp step")
+        del model
+        torch.cuda.empty_cache()
+    ring = dataclasses.replace(cfg, attention="ring")
+    res = train_path("k", ring, "gpt2-small sp, ring attention (a ring of "
+                     "one)", steps=K_STEPS, ref_steps=2, strategy="sp")
+    _profile_step(res["model"], res["batch"], "k", "ring step", top=5)
+    del res
+    torch.cuda.empty_cache()
+    sp_ep = dataclasses.replace(ring, n_experts=4, expert_top_k=2)
+    res = train_path("k", sp_ep, "gpt2-small sp_ep, ring attention + MoE e=4 "
+                     "top-2", steps=K_STEPS, ref_steps=2,
+                     strategy=ShardingStrategy.sp_ep())
+    _profile_step(res["model"], res["batch"], "k", "sp_ep step", top=5)
+    del res
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -844,10 +923,11 @@ def main() -> int:
     phase_build()
     errs = phase_kernels()
     phase_forward()
-    launches = phase_train()
+    launches, e_step0 = phase_train()
     timing = phase_timing()
     phase_moe()
     phase_medium()
+    phase_strategies(e_step0)
     kernels = [dict(name=n, route="cuda", source=SOURCES[n],
                     replaces=REPLACES[n],
                     launches=launches[n], max_abs_err=errs[n],

@@ -3,7 +3,10 @@
 The JAX tree is nested dicts and lists with numpy leaves (``np.asarray`` of
 ``ray_tpu.models.gpt.gpt_init``'s output); the module's ``state_dict`` uses
 the same names joined by dots (``layers.0.attn.wq``), with the same
-shapes, so nothing is transposed.
+shapes, so nothing is transposed. A model placed on a mesh
+(``parallel.sharding.shard_params``) takes the JAX values straight into
+each rank's shards (``load_params``), and gives its whole parameters back
+as the JAX tree (``params_to_numpy``, which every rank calls).
 """
 
 from __future__ import annotations
@@ -55,7 +58,24 @@ def unflatten(flat: Mapping[str, Any]) -> Dict[str, Any]:
     return listify(root)
 
 
+@torch.no_grad()
+def load_params(model: nn.Module, tree: Any) -> None:
+    """Copy a JAX param tree (numpy leaves) into ``model``'s parameters, or,
+    for a placed model, each leaf's part on this rank into its shard."""
+    from ray_tpu_torch.parallel.sharding import local_params
+    flat = flatten(tree)
+    placement = getattr(model, "placement", None)
+    for (name, _), shard in zip(model.named_parameters(),
+                                local_params(model)):
+        full = torch.from_numpy(np.array(flat[name]))
+        if placement is not None:
+            full = placement.local(name, full)
+        shard.copy_(full)
+
+
 def params_to_numpy(model: nn.Module) -> Dict[str, Any]:
-    """The module's parameters as a JAX-shaped tree of numpy arrays."""
-    return unflatten({name: p.detach().cpu().numpy()
-                      for name, p in model.named_parameters()})
+    """The module's whole parameters as a JAX-shaped tree of numpy arrays
+    (gathered from the shards of a placed model: every rank calls it)."""
+    from ray_tpu_torch.parallel.sharding import gather_params
+    return unflatten({name: p.cpu().numpy()
+                      for name, p in gather_params(model).items()})

@@ -8,15 +8,32 @@ in without transposes. Master weights are fp32 and are cast to
 ``ray_tpu_torch.ops.attention.flash_attention`` (CUDA kernels on the card)
 or ``mha_reference``.
 
-Dense and MoE layers, remat ``full``, ``dots`` and ``none``. Ring
-attention raises ``NotImplementedError`` naming the ROADMAP item that
-brings it.
+Dense and MoE layers, remat ``full``, ``dots`` and ``none``; flash,
+reference or ring attention.
 
-Under a data-parallel step (``train/train_step.py``) the token count that
-normalises the loss and the expert counts of the MoE aux loss are summed
-over the data group (``parallel.mesh.all_sum``), and ``gpt_loss`` returns
-this rank's share of the whole batch's loss: the shares sum over the group
-to the loss that the JAX model gives for the whole batch.
+Across devices (``train/train_step.py``) the model computes, on each rank,
+its part of the global function of the JAX model, in the running step's
+context (``parallel.mesh.data_parallel``):
+
+- the batch group (data, fsdp, sequence) holds different tokens: the
+  token count that normalises the loss and the expert counts of the MoE
+  aux loss are summed over it (``parallel.mesh.all_sum``), and
+  ``gpt_loss`` returns this rank's share of the whole batch's loss: the
+  shares sum over the group to the JAX loss of the whole batch;
+- a weight split over the tensor or expert axis (``parallel.sharding.
+  shard_params``) is this rank's slice, and its block runs Megatron style
+  (``parallel.tensor_parallel``): attention on local heads, the MLP on
+  local d_ff, MoE on local experts and d_ff, the embedding as a masked
+  lookup of local vocabulary rows, the head as local vocabulary columns
+  with the cross-entropy's max, sum of exponentials and target logit
+  reduced over the group. Which weights are split, and over which axis,
+  the model asks its placement (``model.placement``); a weight that the
+  block splits but that the rank holds whole (``moe/w_gate`` under
+  ``tp``) is used in part, and its gradient summed over the axis
+  (``take_part``);
+- the sequence axis splits the tokens: each rank takes its S/n positions
+  right after the input, with RoPE positions offset to match, and
+  attention must be ``ring``.
 """
 
 from __future__ import annotations
@@ -33,8 +50,13 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ray_tpu_torch import resolve_device
-from ray_tpu_torch.ops.attention import flash_attention, mha_reference
-from ray_tpu_torch.parallel.mesh import all_sum
+from ray_tpu_torch.ops.attention import (flash_attention, mha_reference,
+                                         ring_attention)
+from ray_tpu_torch.parallel.mesh import (Axis, all_sum, current_step,
+                                         data_parallel, step_axis, step_mesh)
+from ray_tpu_torch.parallel.sharding import Placement
+from ray_tpu_torch.parallel.tensor_parallel import (all_max, copy_to,
+                                                    reduce_from, take_part)
 
 
 @dataclass(frozen=True)
@@ -57,7 +79,7 @@ class GPTConfig:
     # products' outputs and recomputes the rest (see _DOTS); "none" saves
     # everything.
     remat_policy: Optional[str] = None
-    attention: str = "flash"          # flash | reference (ring: not yet)
+    attention: str = "flash"          # flash | reference | ring
     # The JAX kernel's blocks: decide the ragged fallback (see
     # ops/attention.flash_attention), not the CUDA kernels' tiles.
     flash_block_q: int = 128
@@ -91,11 +113,7 @@ def _check_supported(cfg: GPTConfig) -> None:
     if policy not in ("full", "dots", "none"):
         raise ValueError(f"unknown remat_policy {policy!r} "
                          "(expected 'full' | 'dots' | 'none')")
-    if cfg.attention == "ring":
-        raise NotImplementedError(
-            "attention='ring' is not ported yet: ROADMAP queue 1, item "
-            "'ring_attention'")
-    if cfg.attention not in ("flash", "reference"):
+    if cfg.attention not in ("flash", "reference", "ring"):
         raise ValueError(f"unknown attention {cfg.attention!r}")
 
 
@@ -150,8 +168,10 @@ class _MoE(nn.Module):
 
 
 class _Layer(nn.Module):
-    def __init__(self, cfg: GPTConfig, gen):
+    def __init__(self, cfg: GPTConfig, gen, index: int):
         super().__init__()
+        self.cfg = cfg
+        self.path = f"layers.{index}."     # its parameters' name prefix
         self.ln1 = _Norm(cfg.d_model, gen.device)
         self.ln2 = _Norm(cfg.d_model, gen.device)
         self.attn = _Attn(cfg, gen)
@@ -159,6 +179,18 @@ class _Layer(nn.Module):
             self.moe = _MoE(cfg, gen)
         else:
             self.mlp = _MLP(cfg, gen)
+
+    def forward(self, x, positions, placement: Optional[Placement] = None):
+        """-> (x, MoE stats or None), checkpointed by the remat policy.
+        Inside the module's call, so that FSDP2's hooks gather the layer's
+        weights around the forward and the backward's recompute."""
+        policy = _remat_policy(self.cfg)
+        if policy == "none":
+            return _layer_fn(self, x, self.cfg, positions, placement)
+        return checkpoint(
+            _layer_in_step, current_step(), self, x, self.cfg, positions,
+            placement, use_reentrant=False,
+            **({"context_fn": _DOTS} if policy == "dots" else {}))
 
 
 class GPT(nn.Module):
@@ -175,11 +207,50 @@ class GPT(nn.Module):
         self.final_norm = _Norm(cfg.d_model, gen.device)
         if not cfg.tie_embeddings:
             self.lm_head = _dense((cfg.d_model, cfg.vocab_size), None, gen)
-        self.layers = nn.ModuleList(_Layer(cfg, gen)
-                                    for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(_Layer(cfg, gen, i)
+                                    for i in range(cfg.n_layers))
 
-    def forward(self, tokens):
-        return gpt_forward(self, tokens)
+    def check_placement(self, placement: Placement) -> None:
+        """Raise ValueError where ``placement`` (``parallel.sharding.
+        shard_params``) splits a weight over the tensor or expert axis on
+        another dim than its block splits (``_SPLIT_DIMS``), or attention
+        inside a head. Whether the axes divide the dims, the placement
+        checks itself."""
+        names = [name for name, _ in self.named_parameters()]
+        for name in names:
+            for axis, dims in _SPLIT_DIMS.items():
+                dim = placement.split_dim(name, axis)
+                want = dims.get(_block_key(name))
+                if dim is not None and dim != want:
+                    raise ValueError(
+                        f"{name}: split over {axis!r} on dim {dim}, where "
+                        "its block splits " + ("none" if want is None
+                                               else f"dim {want}"))
+        t = placement.mesh.shape["tensor"]
+        split = any(placement.split_dim(name, "tensor") is not None
+                    for name in names if ".attn." in name)
+        if split and self.cfg.n_heads % t:
+            raise ValueError(f"attn/wq: {self.cfg.n_heads} heads do not "
+                             f"divide over the 'tensor' axis ({t})")
+
+    def forward(self, tokens, targets=None):
+        """tokens [B, S] -> ``gpt_forward``'s (logits, aux); given targets
+        [B, S] (below 0: masked), ``gpt_loss``'s loss instead. Both run
+        through the module's call, which FSDP2's hooks wrap."""
+        x, aux = gpt_backbone(self, tokens)
+        w_head, vocab = _head(self)
+        if targets is None:
+            return copy_to(x, vocab.group) @ w_head, aux
+        targets = _local_positions(targets, step_axis("sequence"))
+        b, s, d = x.shape
+        mask = (targets >= 0).float()
+        total, denom = chunked_xent(x.reshape(b * s, d), w_head,
+                                    targets.reshape(b * s),
+                                    mask.reshape(b * s), vocab=vocab)
+        loss = total / torch.clamp_min(all_sum(denom), 1.0)
+        if self.cfg.n_experts > 0:
+            loss = loss + 0.01 * aux / self.cfg.n_layers
+        return loss
 
 
 def gpt_init(cfg: GPTConfig, device=None,
@@ -217,33 +288,80 @@ def _rope(x, theta: float, positions):
                      dim=-1).to(x.dtype)
 
 
-def _attention_block(layer: _Layer, x, cfg: GPTConfig, positions):
+# The dim of each weight that its block splits over the tensor or the
+# expert axis (Megatron style), by its name under its layer or the model.
+_SPLIT_DIMS = {
+    "tensor": {"attn.wq": 1, "attn.wk": 1, "attn.wv": 1, "attn.wo": 0,
+               "mlp.w_gate": 1, "mlp.w_up": 1, "mlp.w_down": 0,
+               "moe.w_gate": 2, "moe.w_up": 2, "moe.w_down": 1,
+               "embed.table": 0, "lm_head": 1},
+    "expert": {"moe.w_gate": 0, "moe.w_up": 0, "moe.w_down": 0},
+}
+
+
+def _block_key(name: str) -> str:
+    """A parameter's key in ``_SPLIT_DIMS``: its name under its layer."""
+    parts = name.split(".")
+    return ".".join(parts[2:]) if parts[0] == "layers" else name
+
+
+def _take(placement: Optional[Placement], axis: str, prefix: str,
+          weights: Dict[str, torch.Tensor]) -> Tuple[list, Axis]:
+    """The weights of one block (``{name under prefix: weight}``) at this
+    rank's part of ``axis``. The block is split over the axis where the
+    placement splits any of its weights: those are this rank's slices
+    already, and a weight held whole is taken at this rank's part through
+    ``take_part``. -> (weights, the axis; size 1 for a block that is not
+    split, and without a placement)."""
+    held = [placement is not None
+            and placement.split_dim(prefix + name, axis) is not None
+            for name in weights]
+    if not any(held):
+        return list(weights.values()), Axis()
+    ax = placement.mesh.axis(axis)
+    dims = _SPLIT_DIMS[axis]
+    return [w if h else take_part(w, dims[name], ax.index, ax.size, ax.group)
+            for (name, w), h in zip(weights.items(), held)], ax
+
+
+def _attention_block(layer: _Layer, x, cfg: GPTConfig, positions,
+                     placement: Optional[Placement] = None):
     b, s, d = x.shape
-    h, hd = cfg.n_heads, cfg.head_dim
-    dt = cfg.dtype
+    hd, dt = cfg.head_dim, cfg.dtype
     attn = layer.attn
+    (wq, wk, wv, wo), ax = _take(placement, "tensor", layer.path, {
+        "attn.wq": attn.wq, "attn.wk": attn.wk, "attn.wv": attn.wv,
+        "attn.wo": attn.wo})
+    h = cfg.n_heads // ax.size
+    x = copy_to(x, ax.group)
 
     def heads(w):
         return (x @ w.to(dt)).reshape(b, s, h, hd).transpose(1, 2)
 
-    q = _rope(heads(attn.wq), cfg.rope_theta, positions)
-    k = _rope(heads(attn.wk), cfg.rope_theta, positions)
-    v = heads(attn.wv)
-    if cfg.attention == "reference":
+    q = _rope(heads(wq), cfg.rope_theta, positions)
+    k = _rope(heads(wk), cfg.rope_theta, positions)
+    v = heads(wv)
+    if cfg.attention == "ring":
+        o = ring_attention(q, k, v, mesh=step_mesh(), causal=True)
+    elif cfg.attention == "reference":
         o = mha_reference(q, k, v, causal=True)
     else:
         o = flash_attention(q, k, v, causal=True, block_q=cfg.flash_block_q,
                             block_k=cfg.flash_block_k)
-    o = o.transpose(1, 2).reshape(b, s, d)
-    return o @ attn.wo.to(dt)
+    o = o.transpose(1, 2).reshape(b, s, h * hd)
+    return reduce_from(o @ wo.to(dt), ax.group)
 
 
-def _mlp_block(layer: _Layer, x, cfg: GPTConfig):
+def _mlp_block(layer: _Layer, x, cfg: GPTConfig,
+               placement: Optional[Placement] = None):
     dt = cfg.dtype
     m = layer.mlp
-    gate = x @ m.w_gate.to(dt)
-    up = x @ m.w_up.to(dt)
-    return (F.silu(gate) * up) @ m.w_down.to(dt)
+    (w_gate, w_up, w_down), ax = _take(placement, "tensor", layer.path, {
+        "mlp.w_gate": m.w_gate, "mlp.w_up": m.w_up, "mlp.w_down": m.w_down})
+    x = copy_to(x, ax.group)
+    gate = x @ w_gate.to(dt)
+    up = x @ w_up.to(dt)
+    return reduce_from((F.silu(gate) * up) @ w_down.to(dt), ax.group)
 
 
 def _route(moe: _MoE, x, cfg: GPTConfig):
@@ -256,28 +374,45 @@ def _route(moe: _MoE, x, cfg: GPTConfig):
     return probs, weights / weights.sum(dim=-1, keepdim=True), idx
 
 
-def _moe_block(layer: _Layer, x, cfg: GPTConfig):
+def _moe_block(layer: _Layer, x, cfg: GPTConfig,
+               placement: Optional[Placement] = None):
     """Top-k routed MoE with dense dispatch: every expert runs on every
     token and a one-hot combine [b,s,e] keeps the chosen k. Returns (y,
     stats): stats [2, e] holds, per expert, the tokens whose top-1 choice
-    it is and the sum of its router probabilities (``_switch_aux``)."""
+    it is and the sum of its router probabilities (``_switch_aux``).
+
+    Split over the expert axis (experts) and the tensor axis (d_ff), a rank
+    runs its experts on its part of d_ff for every token it holds, and the
+    outputs are summed over both axes. Routing is whole on every rank; the
+    combine weights, like the input, come through ``copy_to``, so that their
+    gradient, which each rank fills for its experts only, is whole again
+    before it reaches the router."""
     dt = cfg.dtype
     m = layer.moe
     b, s, d = x.shape
-    e, ff = cfg.n_experts, cfg.d_ff
+    e = cfg.n_experts
     probs, weights, idx = _route(m, x, cfg)
     onehot = F.one_hot(idx, e).float()                         # [b,s,k,e]
     combine = torch.einsum("bsk,bske->bse", weights, onehot)
+    (w_gate, w_up, w_down), ex = _take(placement, "expert", layer.path, {
+        "moe.w_gate": m.w_gate, "moe.w_up": m.w_up, "moe.w_down": m.w_down})
+    (w_gate, w_up, w_down), tx = _take(placement, "tensor", layer.path, {
+        "moe.w_gate": w_gate, "moe.w_up": w_up, "moe.w_down": w_down})
+    axes = [a for a, ax in (("expert", ex), ("tensor", tx)) if ax.size > 1]
+    group = placement.mesh.axis(axes).group if axes else None
+    el, fl = w_up.shape[0], w_up.shape[2]
+    xe = copy_to(x, group)
+    ce = copy_to(combine, group).narrow(-1, ex.index * el, el)
 
     def expert_in(w):
         # "bsd,edf->bsef" as one product with no batch dims (aten.mm, as
         # remat "dots" expects of a weight product).
-        return (x @ w.to(dt).permute(1, 0, 2).reshape(d, e * ff)).view(
-            b, s, e, ff)
+        return (xe @ w.to(dt).permute(1, 0, 2).reshape(d, el * fl)).view(
+            b, s, el, fl)
 
-    act = F.silu(expert_in(m.w_gate)) * expert_in(m.w_up)
-    out = torch.einsum("bsef,efd->bsed", act, m.w_down.to(dt))
-    y = torch.einsum("bsed,bse->bsd", out.float(), combine)
+    act = F.silu(expert_in(w_gate)) * expert_in(w_up)
+    out = torch.einsum("bsef,efd->bsed", act, w_down.to(dt))
+    y = reduce_from(torch.einsum("bsed,bse->bsd", out.float(), ce), group)
     stats = torch.stack([onehot[:, :, 0].sum(dim=(0, 1)),
                          probs.sum(dim=(0, 1))])
     return y.to(dt), stats
@@ -290,7 +425,7 @@ def _switch_aux(stats, n_tokens: int, n_experts: int):
     probability). stats: [L, 2, e] from ``_moe_block``.
 
     Both means are over the whole batch: the counts are summed over the
-    data group of the running step, and the result is this rank's share
+    batch group of the running step, and the result is this rank's share
     (its tokens' probabilities against the global density), which sums
     over the group to the whole batch's aux loss."""
     n = all_sum(stats.new_tensor(float(n_tokens)))
@@ -299,15 +434,27 @@ def _switch_aux(stats, n_tokens: int, n_experts: int):
     return n_experts * torch.sum(density * router_prob)
 
 
-def _layer_fn(layer: _Layer, x, cfg: GPTConfig, positions):
-    """-> (x, MoE stats or None)."""
+def _layer_fn(layer: _Layer, x, cfg: GPTConfig, positions,
+              placement: Optional[Placement] = None):
+    """-> (x, MoE stats or None); ``placement``: the model's (None: whole
+    weights)."""
     h = x + _attention_block(
-        layer, _rmsnorm(x, layer.ln1.scale, cfg.rmsnorm_eps), cfg, positions)
+        layer, _rmsnorm(x, layer.ln1.scale, cfg.rmsnorm_eps), cfg, positions,
+        placement)
     normed = _rmsnorm(h, layer.ln2.scale, cfg.rmsnorm_eps)
     if cfg.n_experts > 0:
-        delta, stats = _moe_block(layer, normed, cfg)
+        delta, stats = _moe_block(layer, normed, cfg, placement)
         return h + delta, stats
-    return h + _mlp_block(layer, normed, cfg), None
+    return h + _mlp_block(layer, normed, cfg, placement), None
+
+
+def _layer_in_step(step, layer: _Layer, x, cfg: GPTConfig, positions,
+                   placement: Optional[Placement]):
+    """``_layer_fn`` in the step context ``step``: the backward's recompute
+    runs it on the autograd engine's thread under CUDA, which does not
+    inherit the context of the step that the forward ran in."""
+    with data_parallel(*step):
+        return _layer_fn(layer, x, cfg, positions, placement)
 
 
 # remat "dots", the counterpart of jax.checkpoint_policies.
@@ -321,22 +468,57 @@ _DOTS = functools.partial(create_selective_checkpoint_contexts,
                           [torch.ops.aten.mm.default])
 
 
+def _local_positions(t, seq: Axis):
+    """This rank's positions of ``t`` [B, S] on the sequence axis."""
+    if seq.size == 1:
+        return t
+    if t.shape[1] % seq.size:
+        raise ValueError(f"sequence length {t.shape[1]} does not divide over "
+                         f"the 'sequence' axis ({seq.size})")
+    n = t.shape[1] // seq.size
+    return t[:, seq.index * n:(seq.index + 1) * n]
+
+
+def _placement(model: GPT) -> Optional[Placement]:
+    """The model's placement (``parallel.sharding.shard_params``); None for
+    a model whose weights are whole."""
+    return getattr(model, "placement", None)
+
+
+def _embed(model: GPT, tokens):
+    """Embedding rows of ``tokens`` in cfg.dtype; split over the vocabulary,
+    a masked lookup of this rank's rows summed over the axis."""
+    cfg = model.cfg
+    (table,), ax = _take(_placement(model), "tensor", "",
+                         {"embed.table": model.embed.table})
+    if ax.size == 1:
+        return table.to(cfg.dtype)[tokens]
+    rows = table.shape[0]
+    # Negative ids wrap, as they index the whole table.
+    local = torch.remainder(tokens, cfg.vocab_size) - ax.index * rows
+    own = (local >= 0) & (local < rows)
+    x = table.to(cfg.dtype)[local.clamp(0, rows - 1)]
+    return reduce_from(torch.where(own[..., None], x, 0.0), ax.group)
+
+
 def gpt_backbone(model: GPT, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: [B, S] -> (final hidden states [B, S, D], aux): the MoE aux
-    loss summed over layers (``_switch_aux``), 0 for dense layers."""
+    loss summed over layers (``_switch_aux``), 0 for dense layers. Split
+    over the sequence axis, the hidden states are this rank's S/n
+    positions."""
     cfg = model.cfg
+    seq = step_axis("sequence")
+    if seq.size > 1 and cfg.attention != "ring":
+        raise ValueError(f"a 'sequence' axis of {seq.size} needs "
+                         f"attention='ring', not {cfg.attention!r}")
+    tokens = _local_positions(tokens, seq)
     b, s = tokens.shape
-    x = model.embed.table.to(cfg.dtype)[tokens]
-    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
-    policy = _remat_policy(cfg)
+    x = _embed(model, tokens)
+    positions = (seq.index * s + torch.arange(s, device=tokens.device)
+                 )[None, :].expand(b, s)
     stats = []
     for layer in model.layers:
-        if policy == "none":
-            x, st = _layer_fn(layer, x, cfg, positions)
-        else:
-            x, st = checkpoint(
-                _layer_fn, layer, x, cfg, positions, use_reentrant=False,
-                **({"context_fn": _DOTS} if policy == "dots" else {}))
+        x, st = layer(x, positions, _placement(model))
         if st is not None:
             stats.append(st)
     if stats:
@@ -346,35 +528,60 @@ def gpt_backbone(model: GPT, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
     return _rmsnorm(x, model.final_norm.scale, cfg.rmsnorm_eps), aux
 
 
-def _head_weight(model: GPT):
-    dt = model.cfg.dtype
-    if model.cfg.tie_embeddings:
-        return model.embed.table.to(dt).t()
-    return model.lm_head.to(dt)
+def _head(model: GPT) -> Tuple[torch.Tensor, Axis]:
+    """(the head weight [D, V] in cfg.dtype, or this rank's vocabulary
+    columns of it, and the axis that splits them)."""
+    cfg = model.cfg
+    if cfg.tie_embeddings:
+        (table,), ax = _take(_placement(model), "tensor", "",
+                             {"embed.table": model.embed.table})
+        return table.to(cfg.dtype).t(), ax
+    (w,), ax = _take(_placement(model), "tensor", "",
+                     {"lm_head": model.lm_head})
+    return w.to(cfg.dtype), ax
 
 
 def gpt_forward(model: GPT, tokens):
-    """tokens: [B, S] int -> (logits [B, S, vocab] in cfg.dtype, aux)."""
-    x, aux = gpt_backbone(model, tokens)
-    return x @ _head_weight(model), aux
+    """tokens: [B, S] int -> (logits [B, S, vocab] in cfg.dtype, aux).
+    Split over the tensor axis, the logits are this rank's vocabulary
+    columns; over the sequence axis, its positions."""
+    return model(tokens)
 
 
-def _xent_chunk(xk, w_head, tk, mk):
+def _xent_chunk(xk, w_head, tk, mk, vocab: Axis):
     logits = (xk @ w_head).float()                      # [chunk, V]
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, 1, tk.clamp_min(0)[:, None])[:, 0]
+    if vocab.group is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, 1, tk.clamp_min(0)[:, None])[:, 0]
+    else:
+        m = all_max(logits.detach().amax(dim=-1), vocab.group)
+        lse = m + torch.log(reduce_from(
+            torch.exp(logits - m[:, None]).sum(dim=-1), vocab.group))
+        cols = logits.shape[1]
+        local = tk - vocab.index * cols
+        own = (local >= 0) & (local < cols)
+        picked = torch.gather(logits, 1,
+                              local.clamp(0, cols - 1)[:, None])[:, 0]
+        picked = reduce_from(torch.where(own, picked, 0.0), vocab.group)
     nll = lse - picked
     return torch.sum(nll * mk), torch.sum(mk)
 
 
-def chunked_xent(x, w_head, targets, mask, chunk_rows: int = 16384):
+def chunked_xent(x, w_head, targets, mask, chunk_rows: int = 16384,
+                 vocab: Axis = Axis()):
     """Next-token cross-entropy without the full [N, vocab] fp32 logits.
 
     Rows go in chunks under ``torch.utils.checkpoint``, so the backward
     recomputes each chunk's logits instead of saving them. x: [N, D]
     (model dtype), w_head: [D, V], targets: [N] int, mask: [N] fp32.
-    Returns (sum_nll, sum_mask)."""
+    Returns (sum_nll, sum_mask).
+
+    ``vocab``: the axis that splits w_head's columns, this rank holding
+    the vocab.index-th V/n of them: the max and the sum of exponentials are
+    reduced over its group, and each target's logit comes from the rank
+    that holds it."""
     n, d = x.shape
+    x = copy_to(x, vocab.group)
     # Never chunk coarser than the batch itself (see the JAX version).
     chunk_rows = min(chunk_rows, max(128, n))
     pad = (-n) % chunk_rows
@@ -387,7 +594,7 @@ def chunked_xent(x, w_head, targets, mask, chunk_rows: int = 16384):
     for start in range(0, n + pad, chunk_rows):
         sl = slice(start, start + chunk_rows)
         t, m = checkpoint(_xent_chunk, x[sl], w_head, targets[sl], mask[sl],
-                          use_reentrant=False)
+                          vocab, use_reentrant=False)
         total = total + t
         denom = denom + m
     return total, denom
@@ -397,20 +604,11 @@ def gpt_loss(model: GPT, batch: Dict[str, torch.Tensor]):
     """batch: {"tokens": [B, S+1]} -> mean next-token cross-entropy, plus
     0.01 aux / n_layers for MoE; target positions below 0 are masked out.
 
-    The mean is over the whole batch's unmasked targets: under a
-    data-parallel step the count is summed over the data group, and the
-    loss is this rank's share (module doc)."""
+    The mean is over the whole batch's unmasked targets: under a step over
+    a mesh the count is summed over the batch group, and the loss is this
+    rank's share (module doc)."""
     tokens = batch["tokens"]
-    inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    x, aux = gpt_backbone(model, inputs)
-    b, s, d = x.shape
-    mask = (targets >= 0).float()
-    total, denom = chunked_xent(x.reshape(b * s, d), _head_weight(model),
-                                targets.reshape(b * s), mask.reshape(b * s))
-    loss = total / torch.clamp_min(all_sum(denom), 1.0)
-    if model.cfg.n_experts > 0:
-        loss = loss + 0.01 * aux / model.cfg.n_layers
-    return loss
+    return model(tokens[:, :-1], tokens[:, 1:])
 
 
 def count_params(model: nn.Module) -> int:

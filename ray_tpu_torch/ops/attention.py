@@ -16,6 +16,11 @@ built or launched raises. Each wrapper counts its launches in
 Kernel layouts: q [BH, Sq, D], k/v [BH, Sk, D], lse/delta [BH, Sq] fp32.
 Public layouts: q, k, v are [batch, num_heads, seq, head_dim].
 
+``ring_attention`` splits the sequence over a mesh axis (K/V shards
+rotated around the ring by point-to-point ops); its blockwise partials are
+plain PyTorch, as JAX computes them with einsums outside any Pallas
+kernel, and its backward is an autograd Function of its own.
+
 Contract for fully masked rows (causal, seq_q > seq_k): as in the JAX
 ``flash_attention``, a row whose q block visits no key block gets 0, and
 the backward forces p to 0 wherever the logit is masked. ``mha_reference``
@@ -29,6 +34,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ray_tpu_torch.ops import _build
 
@@ -350,3 +356,135 @@ def flash_attention(q, k, v, *, causal: bool = True,
         return mha_reference(q, k, v, causal=causal, sm_scale=sm_scale)
     return _FlashFn.apply(q, k, v, causal, float(sm_scale), block_q, block_k)
 
+
+
+# ---------------------------------------------------------------------------
+# Ring attention (context parallelism over the 'sequence' mesh axis)
+# ---------------------------------------------------------------------------
+
+def _blockwise_partials(q, k, v, q_offset: int, k_offset: int, causal: bool,
+                        sm_scale: float):
+    """Unnormalised attention of q over one K/V block, with its running-max
+    statistics: (acc [b,h,q,D], m [b,h,q], l [b,h,q]), all fp32, which
+    ``_combine`` merges across blocks. Logits come from a product in the
+    input dtype, masked entries are NEG_INF: a fully masked block gives
+    m = NEG_INF and p = 1, which ``_combine`` wipes out against any real
+    max."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * sm_scale
+    if causal:
+        s = torch.where(_causal_allowed(q, k, q_offset, k_offset), s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    return acc, m, l
+
+
+def _causal_allowed(q, k, q_offset: int, k_offset: int) -> torch.Tensor:
+    q_pos = q_offset + torch.arange(q.shape[2], device=q.device)[:, None]
+    k_pos = k_offset + torch.arange(k.shape[2], device=q.device)[None, :]
+    return q_pos >= k_pos
+
+
+def _combine(acc1, m1, l1, acc2, m2, l2):
+    m = torch.maximum(m1, m2)
+    a1 = torch.exp(m1 - m)
+    a2 = torch.exp(m2 - m)
+    return acc1 * a1[..., None] + acc2 * a2[..., None], m, l1 * a1 + l2 * a2
+
+
+def _rotate(tensors, group, index: int, n: int):
+    """Each tensor sent to the next rank of the ring and replaced by the
+    previous rank's (one batch of point-to-point ops)."""
+    nxt = dist.get_global_rank(group, (index + 1) % n)
+    prv = dist.get_global_rank(group, (index - 1) % n)
+    tensors = [t.contiguous() for t in tensors]
+    out = [torch.empty_like(t) for t in tensors]
+    ops = [dist.P2POp(dist.isend, t, nxt, group) for t in tensors]
+    ops += [dist.P2POp(dist.irecv, o, prv, group) for o in out]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+class _RingFn(torch.autograd.Function):
+    """The forward of JAX's ring_attention: at step i this rank holds the
+    K/V shard of ring position (index - i) mod n, merges its partials into
+    the running (acc, m, l) and passes the shard on. The backward visits
+    the shards in the same order with p = exp(s - lse), and the dK/dV
+    accumulators travel with their shard, which a last rotation returns to
+    its owner (JAX transposes ppermute; torch has no such transpose)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, group, index, n, causal, sm_scale):
+        b, h, chunk, d = q.shape
+        acc = torch.zeros((b, h, chunk, d), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((b, h, chunk), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, h, chunk), dtype=torch.float32, device=q.device)
+        kv = (k, v)
+        for i in range(n):
+            src = (index - i) % n
+            a2, m2, l2 = _blockwise_partials(q, *kv, index * chunk,
+                                             src * chunk, causal, sm_scale)
+            acc, m, l = _combine(acc, m, l, a2, m2, l2)
+            if i < n - 1:
+                kv = _rotate(kv, group, index, n)
+        l = torch.where(l == 0.0, 1.0, l)
+        out = (acc / l[..., None]).to(q.dtype)
+        ctx.save_for_backward(q, k, v, out, m + torch.log(l))
+        ctx.ring = (group, index, n, causal, sm_scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        group, index, n, causal, sm_scale = ctx.ring
+        chunk = q.shape[2]
+        do = dout.float()
+        delta = (do * out.float()).sum(dim=-1)
+        q32 = q.float()
+        dq = torch.zeros_like(q32)
+        kv = (k, v)
+        dkv = (torch.zeros_like(q32), torch.zeros_like(q32))
+        for i in range(n):
+            src = (index - i) % n
+            kc, vc = kv
+            s = torch.einsum("bhqd,bhkd->bhqk", q, kc).float() * sm_scale
+            p = torch.exp(s - lse[..., None])
+            if causal:
+                p = torch.where(_causal_allowed(q, kc, index * chunk,
+                                                src * chunk), p, 0.0)
+            dp = torch.einsum("bhqd,bhkd->bhqk", do, vc.float())
+            ds = p * (dp - delta[..., None]) * sm_scale
+            dq += torch.einsum("bhqk,bhkd->bhqd", ds, kc.float())
+            dk = dkv[0] + torch.einsum("bhqk,bhqd->bhkd", ds, q32)
+            dv = dkv[1] + torch.einsum("bhqk,bhqd->bhkd", p, do)
+            if i < n - 1:
+                *kv, dk, dv = _rotate((kc, vc, dk, dv), group, index, n)
+            dkv = (dk, dv)
+        if n > 1:
+            dkv = _rotate(dkv, group, index, n)
+        return (dq.to(q.dtype), dkv[0].to(k.dtype), dkv[1].to(v.dtype),
+                None, None, None, None, None)
+
+
+def ring_attention(q, k, v, *, mesh=None, axis_name: str = "sequence",
+                   causal: bool = True, sm_scale: Optional[float] = None):
+    """Attention over a sequence split across ``axis_name`` of ``mesh``.
+
+    q, k, v are this rank's shards [B, H, S/n, D] of the sequence, rank i
+    holding positions i·S/n onwards; the result is this rank's shard of the
+    output. K/V shards go around the ring by point-to-point ops over the
+    axis's process group, n - 1 times forward and n times backward. A ring
+    of one (``mesh`` None, or an axis of size 1) is one local block. The
+    partials are plain PyTorch, as they are einsums outside any Pallas
+    kernel in JAX."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    axis = mesh.axis(axis_name) if mesh is not None else None
+    n = 1 if axis is None else axis.size
+    index = 0 if axis is None else axis.index
+    group = None if axis is None else axis.group
+    return _RingFn.apply(q, k, v, group, index, n, causal, float(sm_scale))

@@ -10,10 +10,16 @@ on the default process group that the caller initialised (give
 process needs no process group: every reduction over an axis is then the
 identity.
 
-The mesh also carries the data-parallel context of a running step
-(``data_parallel``/``all_sum``): a loss that needs a mean over the whole
-batch (``models.gpt.gpt_loss``) sums its counts over the data group there,
-as GSPMD makes the JAX loss global.
+``Mesh.group(axes)`` is the process group of this rank's line along one
+axis or several taken together (the batch group of ``fsdp`` is
+``("data", "fsdp")``), and ``Mesh.axis(axes)`` this rank's place on it.
+
+The mesh also carries the context of a running step (``data_parallel``):
+the mesh and the axes of its batch group. A loss that needs a mean over
+the whole batch (``models.gpt.gpt_loss``) sums its counts over the batch
+group there (``all_sum``), as GSPMD makes the JAX loss global, and the
+model reads the tensor, expert and sequence axes it is split over
+(``step_axis``).
 
 The slice-topology helpers of the JAX module (``SliceInfo``,
 ``detect_slice_id``, ``detect_zone``, ``slice_bundles``) read TPU metadata
@@ -27,7 +33,7 @@ import contextvars
 import logging
 import math
 from dataclasses import dataclass
-from typing import Dict, Iterator, Optional, Sequence, Union
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -95,6 +101,7 @@ class Mesh:
         self.devices = devices
         self.rank = rank
         self.device_mesh = device_mesh
+        self._groups: Dict[Tuple[str, ...], Any] = {}
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -121,16 +128,56 @@ class Mesh:
         return dict(zip(AXIS_ORDER, (int(i) for i in np.unravel_index(
             self.rank, self.devices.shape))))
 
-    def group(self, axis: str):
-        """The process group of this rank's line along ``axis``; None where
-        the axis has size 1 (the reduction over it is the identity)."""
-        if self.shape[axis] == 1:
+    def _axes(self, axes: Union[str, Sequence[str]]) -> Tuple[str, ...]:
+        """``axes`` in the canonical order, those of size 1 left out."""
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        unknown = set(names) - set(AXIS_ORDER)
+        if unknown:
+            raise ValueError(f"unknown mesh axes {sorted(unknown)}")
+        return tuple(a for a in AXIS_ORDER if a in names and self.shape[a] > 1)
+
+    def group(self, axes: Union[str, Sequence[str]]):
+        """The process group of this rank's line along ``axes`` (one axis
+        name, or several taken together): the ranks whose coordinates
+        differ from this rank's in those axes only. None where they have
+        size 1 together (the reduction over them is the identity).
+
+        Every rank of the world must ask for a group of several axes at the
+        same point of the program: its first request creates the groups of
+        every line (``torch.distributed.new_subgroups_by_enumeration``)."""
+        names = self._axes(axes)
+        if not names:
             return None
         if self.device_mesh is None:
             raise ValueError(
-                f"axis {axis!r} has size {self.shape[axis]} but the mesh has "
+                f"axes {names} have size "
+                f"{math.prod(self.shape[a] for a in names)} but the mesh has "
                 "no process group (a fake_mesh, or a world of one process)")
-        return self.device_mesh.get_group(axis)
+        if len(names) == 1:
+            return self.device_mesh.get_group(names[0])
+        if names not in self._groups:
+            dims = [AXIS_ORDER.index(a) for a in names]
+            rest = [i for i in range(len(AXIS_ORDER)) if i not in dims]
+            ranks = np.arange(self.size).reshape(self.devices.shape)
+            lines = ranks.transpose(rest + dims).reshape(
+                -1, math.prod(self.shape[a] for a in names))
+            self._groups[names], _ = dist.new_subgroups_by_enumeration(
+                lines.tolist())
+        return self._groups[names]
+
+    def axis(self, axes: Union[str, Sequence[str]]) -> "Axis":
+        """This rank's place on ``axes`` taken together: their combined
+        size, this rank's index (row-major over the axes in the canonical
+        order, as a JAX spec entry ("data", "fsdp") counts) and the group."""
+        names = self._axes(axes)
+        if not names:
+            return Axis()
+        coord = self.coordinate()
+        index = 0
+        for a in names:
+            index = index * self.shape[a] + coord[a]
+        return Axis(math.prod(self.shape[a] for a in names), index,
+                    self.group(names))
 
 
 def _world() -> tuple:
@@ -202,30 +249,64 @@ def fake_mesh(n_devices: int = 8, **axis_sizes) -> Mesh:
     return Mesh(_grid(cfg, ["cpu"] * n_devices, None))
 
 
+@dataclass(frozen=True)
+class Axis:
+    """One rank's place on a mesh axis, or on several taken together: their
+    size, this rank's index, and the process group (None for a size of 1)."""
+
+    size: int = 1
+    index: int = 0
+    group: Any = None
+
+
 # ---------------------------------------------------------------------------
-# The data-parallel context of a running step
+# The context of a running step
 # ---------------------------------------------------------------------------
 
-_DATA_GROUP: contextvars.ContextVar = contextvars.ContextVar(
-    "ray_tpu_torch_data_group", default=None)
+_STEP: contextvars.ContextVar = contextvars.ContextVar(
+    "ray_tpu_torch_step", default=(None, ()))
 
 
 @contextlib.contextmanager
-def data_parallel(group) -> Iterator[None]:
-    """Run the body as one rank of the data-parallel ``group`` (None: a
-    group of one): ``all_sum`` sums over it."""
-    token = _DATA_GROUP.set(group)
+def data_parallel(mesh: Optional[Mesh],
+                  batch_axes: Sequence[str] = ("data",)) -> Iterator[None]:
+    """Run the body as this rank's part of a step on ``mesh`` (None: one
+    device), whose batch group is ``batch_axes`` taken together: the axes
+    that split the batch's rows, and "sequence", which splits its tokens.
+    ``all_sum`` sums over that group; ``step_axis`` reads the mesh."""
+    token = _STEP.set((mesh, tuple(batch_axes)))
     try:
         yield
     finally:
-        _DATA_GROUP.reset(token)
+        _STEP.reset(token)
+
+
+def step_axis(axes: Union[str, Sequence[str]]) -> Axis:
+    """This rank's place on ``axes`` in the running step; size 1 outside a
+    step or without a mesh."""
+    mesh, _ = _STEP.get()
+    return Axis() if mesh is None else mesh.axis(axes)
+
+
+def current_step() -> tuple:
+    """(mesh, batch axes) of the running step: ``data_parallel(*it)``
+    enters it again, where a thread does not inherit it (the CUDA autograd
+    engine runs the backward, and a checkpoint's recompute, on its own)."""
+    return _STEP.get()
+
+
+def step_mesh() -> Optional[Mesh]:
+    """The mesh of the running step (None outside a step, or without a
+    mesh)."""
+    return _STEP.get()[0]
 
 
 def all_sum(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the data-parallel group of the running step; ``t``
-    itself outside one. No gradient flows through the sum: it is for the
-    counts that make a mean global (tokens, expert choices)."""
-    group = _DATA_GROUP.get()
+    """``t`` summed over the batch group of the running step; ``t`` itself
+    outside one. No gradient flows through the sum: it is for the counts
+    that make a mean global (tokens, expert choices)."""
+    mesh, batch_axes = _STEP.get()
+    group = None if mesh is None else mesh.group(batch_axes)
     if group is None:
         return t
     out = t.detach().clone()

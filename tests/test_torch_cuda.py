@@ -8,6 +8,9 @@ defines the output, rtol 1e-5 in fp32 and 2^-7 (one bf16 ulp) in bf16;
 lse within 1e-4 absolute.
 """
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
@@ -113,3 +116,139 @@ def test_dp_across_cards_matches_one_card(card, tmp_path):
     ranks = D._run_ranks(tmp_path, weights, toks, 4, "full", 0,
                          device="cuda", world=world)
     D.assert_ranks_match(ranks, *_one_card_run(cfg, weights, toks, D.STEPS))
+
+
+@pytest.mark.cuda
+@pytest.mark.timeout(600)
+@pytest.mark.parametrize("data,fsdp", [(1, 2), (2, 1)])
+def test_mp_check_gang_on_cards_matches_one_process(card, data, fsdp):
+    """ray_tpu_torch/parallel/mp_check.py's gang as its defaults run it:
+    two NCCL processes, rank r on cuda:r, over data x fsdp, held to the
+    whole batch in this one process on one card within 1e-5, as JAX holds
+    its gang. In fp32 (the CUDA-core kernels), the port's own init: in
+    bf16 each rank rounds its own rows' weight gradients
+    (tests/test_torch_mp_check.py). Needs two cards or more."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    from ray_tpu_torch.parallel import mp_check
+    baseline = mp_check.step_loss(1, 1, dtype=torch.float32)
+    gang = mp_check.run_gang_subprocesses(2, 1, data, fsdp, dtype="float32")
+    print(f"\n[mp_check] data={data} fsdp={fsdp}: gang {gang}, one "
+          f"process {baseline}")
+    assert len(gang) == 2 and gang[0] == gang[1]
+    assert all(abs(x - baseline) < 1e-5 for x in gang), (gang, baseline)
+
+# (tag, strategy, mesh over four cards, GPTConfig fields over gpt2_small)
+ACROSS = [
+    ("fsdp", "fsdp", dict(fsdp=4), {}),
+    ("tp", "tp", dict(tensor=4), {}),
+    ("tp_fsdp", "tp_fsdp", dict(fsdp=2, tensor=2), {}),
+    ("tp_moe", "tp", dict(expert=4), dict(n_experts=4)),
+    ("sp_ep", "sp_ep", dict(sequence=2, expert=2),
+     dict(attention="ring", n_experts=4)),
+]
+
+
+def _routing(ranks, tag, n_layers):
+    """{layer: [B, S, k]} of step 0's forward, assembled from the ranks'
+    rows (data x fsdp coordinate) and positions (sequence coordinate)."""
+    blocks = {}
+    for out in ranks:
+        c = out[tag + "coord"]
+        blocks.setdefault((int(c[0]) * 1000 + int(c[1]), int(c[4])), out)
+    rows = sorted({r for r, _ in blocks})
+    seqs = sorted({s for _, s in blocks})
+    return {i: torch.from_numpy(np.concatenate([np.concatenate(
+        [blocks[(r, s)][f"{tag}routing{i}"] for s in seqs], axis=1)
+        for r in rows], axis=0)).cuda() for i in range(n_layers)}
+
+
+def _median_ms(times) -> float:
+    return float(np.median(times[1:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.timeout(900)
+def test_strategies_across_cards_match_one_card(card, tmp_path):
+    """GPT-2 small at full width (bf16, batch 8, seq 1024, remat full), one
+    NCCL rank per card on four cards, under fsdp (fsdp=4), tp (tensor=4),
+    tp_fsdp (2x2), tp with MoE (4 experts, expert=4) and the dry run's
+    sp_ep (sequence=2 x expert=2, ring attention, MoE 4 experts), each
+    against the same config on one card through the same code in a world
+    of one: step 0 within chip_smoke.py's gate (loss 1e-4, grad norm 2e-3
+    relative; for MoE the one-card step replays the four cards' routing,
+    as chip_smoke's phase (i) does), the same loss on every rank, losses
+    falling over 3 more steps, and per rank 2L/L/L launches of K1-K3 a
+    step (none under ring attention). Prints each side's step ms, profiled
+    device ms (NCCL's kernels apart: they overlap the compute and spin
+    while they wait) and peak memory. Needs four cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    import subprocess
+
+    import torch_dp_worker as W
+    from test_torch_strategies import launch
+
+    from ray_tpu_torch.models import GPTConfig
+    runs = [dict(tag=f"{tag}/", kind="card", preset="gpt2_small",
+                 dtype="bfloat16", cfg=cfg, strategy=strategy, mesh=mesh,
+                 batch=8, seq=1024, steps=4)
+            for tag, strategy, mesh, cfg in ACROSS]
+    ranks = launch(tmp_path, runs, {}, world=4, device="cuda", timeout=420)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    print(f"\n[across] {len(smi)} cards: {smi}")
+    failures = []
+    for run in runs:
+        tag = run["tag"]
+        cfg = dataclasses.replace(GPTConfig.gpt2_small(), **run["cfg"])
+        one = {}
+        W.card(run, ["cuda:0"], one, world_of_one=True)
+        n = 0 if cfg.attention == "ring" else cfg.n_layers
+        for r, out in enumerate(ranks):
+            print(f"[across] {tag} rank {r}: losses "
+                  f"{np.round(out[tag + 'loss'], 5).tolist()}, step "
+                  f"{_median_ms(out[tag + 'step_ms']):.1f} ms, device "
+                  f"{float(out[tag + 'device_ms']):.2f} ms (NCCL kernels "
+                  f"{float(out[tag + 'nccl_ms']):.2f} ms apart), peak "
+                  f"{float(out[tag + 'peak_gb']):.2f} GB, K1-K3 launches "
+                  f"per step {out[tag + 'launches'][0].tolist()}")
+        print(f"[across] {tag} one card: losses "
+              f"{np.round(one[tag + 'loss'], 5).tolist()}, step "
+              f"{_median_ms(one[tag + 'step_ms']):.1f} ms, device "
+              f"{float(one[tag + 'device_ms']):.2f} ms, peak "
+              f"{float(one[tag + 'peak_gb']):.2f} GB, K1-K3 launches per "
+              f"step {one[tag + 'launches'][0].tolist()}")
+        out0 = ranks[0]
+        for side, out in (("rank 0", out0), ("one card", one)):
+            print(f"[across] {tag} {side} top device ops: "
+                  f"{out[tag + 'top'].tolist()}")
+        loss, norm = (float(out0[tag + "loss"][0]),
+                      float(out0[tag + "grad_norm"][0]))
+        ref = (float(one[tag + "loss"][0]), float(one[tag + "grad_norm"][0]))
+        if cfg.n_experts:
+            chip_smoke._gate("across", loss, norm, ref,
+                             f"{tag} vs one card, routing free (printed)")
+            _, model, batch = W.card_model(run)
+            ref = chip_smoke._step0(
+                dataclasses.replace(cfg, dtype=torch.bfloat16),
+                model.state_dict(), batch,
+                replay=_routing(ranks, tag, cfg.n_layers),
+                strategy=W._strategy(run["strategy"]))
+            del model
+        if not chip_smoke._gate("across", loss, norm, ref,
+                                f"{tag} vs one card"):
+            failures.append(f"{tag} step 0")
+        for r, out in enumerate(ranks):
+            ls = out[tag + "loss"]
+            if not (np.all(np.isfinite(ls)) and np.all(np.diff(ls) < 0)):
+                failures.append(f"{tag} rank {r} losses {ls.tolist()}")
+            if ls.tolist() != out0[tag + "loss"].tolist():
+                failures.append(f"{tag} rank {r} loss differs from rank 0")
+            want = [[2 * n, n, n]] * len(ls)
+            if out[tag + "launches"].tolist() != want:
+                failures.append(f"{tag} rank {r} launches "
+                                f"{out[tag + 'launches'].tolist()}")
+        torch.cuda.empty_cache()
+    assert not failures, failures

@@ -14,9 +14,6 @@ the gradients AdamW was given, 1e-3 of each leaf's largest magnitude
 """
 
 import dataclasses
-import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -27,11 +24,10 @@ from ray_tpu_torch.models import gpt as tgpt
 from ray_tpu_torch.parallel import MeshConfig, build_mesh
 from ray_tpu_torch.train import train_step as tts
 from test_torch_gpt import GRAD_RTOL
+from test_torch_strategies import launch
 from test_torch_train_step import (GNORM_RTOL, LOOSE_TOL,
                                          NEAR_ZERO_GRAD, PARAM_TOL)
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WORKER = os.path.join(ROOT, "tests", "torch_dp_worker.py")
 WORLD = 2
 STEPS = 3
 LOSS_RTOL = 1e-5
@@ -94,26 +90,13 @@ def _jax_run(jcfg, tree, toks, accum):
 
 def _run_ranks(tmp_path, tree, toks, n_experts, policy, accum,
                device="cpu", world=WORLD):
-    inp = tmp_path / "in.npz"
-    np.savez(inp, n_experts=n_experts, remat_policy=policy,
-             accum_steps=accum, steps=STEPS, tokens=toks,
-             **{f"param:{k}": v for k, v in convert.flatten(tree).items()})
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env.update(PYTHONPATH=ROOT, OMP_NUM_THREADS="2")
-    procs = [subprocess.Popen(
-        [sys.executable, WORKER, str(r), str(world), str(tmp_path / "store"),
-         str(inp), str(tmp_path / f"out{r}.npz"), device], env=env,
-        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for r in range(world)]
-    try:
-        outs = [p.communicate(timeout=240)[0].decode() for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-            p.wait()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r}:\n{out[-4000:]}"
-    return [dict(np.load(tmp_path / f"out{r}.npz")) for r in range(world)]
+    run = dict(tag="", strategy="dp", mesh={"data": world},
+               cfg={"n_experts": n_experts, "remat_policy": policy},
+               accum_steps=accum, steps=STEPS, tokens="tokens",
+               params="param:")
+    return launch(tmp_path, [run], {"tokens": toks, **{
+        f"param:{k}": v for k, v in convert.flatten(tree).items()}},
+        world=world, device=device)
 
 
 def assert_ranks_match(ranks, j_steps, j_final, j_eval):

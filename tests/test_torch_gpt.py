@@ -184,12 +184,3 @@ def test_masked_targets_are_ignored(tiny):
     part = tgpt.gpt_loss(model, {"tokens": masked})
     assert abs(float(full.detach()) - float(part.detach())) <= 1e-5 * abs(
         float(full.detach()))
-
-
-@pytest.mark.parametrize("kw,item", [
-    (dict(attention="ring"), "ring_attention"),
-])
-def test_unported_options_raise(kw, item):
-    cfg = dataclasses.replace(tgpt.GPTConfig.tiny(), **kw)
-    with pytest.raises(NotImplementedError, match=item):
-        tgpt.gpt_init(cfg, device="cpu")

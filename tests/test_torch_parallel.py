@@ -187,3 +187,103 @@ def test_truncate_spec_matches_jax(spec, shape):
     from ray_tpu.parallel.sharding import _truncate_spec
     assert tsh._truncate_spec(spec, shape) == tuple(
         _truncate_spec(P(*spec), shape))
+
+
+@pytest.mark.parametrize("axes,preset,n_experts,match", [
+    (dict(tensor=3), "tp", 0,
+     r"lm_head: dim 1 of size 512 does not divide over the tensor axis"
+     r" \(3\)"),
+    (dict(tensor=8), "tp", 0,
+     r"attn/wq: 4 heads do not divide over the 'tensor' axis \(8\)"),
+    (dict(expert=8), "tp", 4,
+     r"layers.0.moe.w_up: dim 0 of size 4 does not divide over the expert "
+     r"axis \(8\)"),
+    (dict(fsdp=3, tensor=2), "tp_fsdp", 0,
+     r"lm_head: dim 0 of size 128 does not divide over the fsdp axis "
+     r"\(3\)"),
+])
+def test_indivisible_placement_raises(axes, preset, n_experts, match):
+    """A tensor or expert axis that does not divide a dim (or the heads)
+    raises ValueError naming the parameter and the axis; the port never
+    falls back to replication there."""
+    cfg = dataclasses.replace(tgpt.GPTConfig.tiny(), n_experts=n_experts)
+    mesh = tmesh.fake_mesh(int(np.prod(list(axes.values()))), **axes)
+    model = tgpt.gpt_init(cfg, device="cpu")
+    with pytest.raises(ValueError, match=match):
+        tsh.shard_params(model, mesh, preset)
+
+
+def test_fsdp_largest_replicates_where_nothing_divides():
+    """JAX's FSDP_LARGEST replicates a parameter that no dim of divides:
+    on fsdp=3 every GPT-tiny weight stays whole, with no FSDP2 module."""
+    mesh = tmesh.fake_mesh(3, fsdp=3)
+    model = tgpt.gpt_init(tgpt.GPTConfig.tiny(), device="cpu")
+    shapes = {n: p.shape for n, p in model.named_parameters()}
+    placement = tsh.shard_params(model, mesh, "fsdp")
+    assert not placement.fsdp and model.placement is placement
+    assert all(spec == () for spec in placement.specs.values())
+    assert {n: p.shape for n, p in model.named_parameters()} == shapes
+
+
+def test_tensor_slices_are_the_spec_parts():
+    """Rank r's slice under "tp" on a fake mesh (no process group needed:
+    tensor and expert slices are local) is the spec's part of the whole
+    parameter at r's coordinate."""
+    cfg = dataclasses.replace(tgpt.GPTConfig.tiny(), n_experts=4)
+    whole = tgpt.gpt_init(cfg, device="cpu")
+    full = {n: p.detach().clone() for n, p in whole.named_parameters()}
+    mesh = tmesh.fake_mesh(8, data=2, tensor=2, expert=2)
+    mesh.rank = 7                                   # tensor 1, expert 1
+    tsh.shard_params(whole, mesh, "tp")
+    got = dict(whole.named_parameters())
+    assert torch.equal(got["layers.0.attn.wq"], full["layers.0.attn.wq"][:, 64:])
+    assert torch.equal(got["layers.0.attn.wo"], full["layers.0.attn.wo"][64:])
+    assert torch.equal(got["embed.table"], full["embed.table"][256:])
+    assert torch.equal(got["lm_head"], full["lm_head"][:, 256:])
+    assert torch.equal(got["layers.1.moe.w_up"],
+                       full["layers.1.moe.w_up"][2:, :, 128:])
+    assert torch.equal(got["layers.1.moe.w_down"],
+                       full["layers.1.moe.w_down"][2:, 128:])
+    # No rule matches moe/w_gate: whole on every rank, used in part.
+    assert torch.equal(got["layers.1.moe.w_gate"], full["layers.1.moe.w_gate"])
+    assert torch.equal(got["layers.1.ln1.scale"], full["layers.1.ln1.scale"])
+    with pytest.raises(ValueError, match="placed already"):
+        tsh.shard_params(whole, mesh, "tp")
+
+
+@pytest.mark.parametrize("rule,match", [
+    ((r"attn/wq", ("tensor", None)),
+     r"layers.0.attn.wq: split over 'tensor' on dim 0, where its block "
+     r"splits dim 1"),
+    ((r"ln1", ("tensor",)),
+     r"layers.0.ln1.scale: split over 'tensor' on dim 0, where its block "
+     r"splits none"),
+    ((r"attn/wq", ("tensor", "tensor")),
+     r"layers.0.attn.wq: spec \('tensor', 'tensor'\) names an axis twice"),
+])
+def test_misplaced_split_raises(rule, match):
+    """A spec that splits a weight on a dim its block does not split, or
+    names an axis twice, raises ValueError at placement, naming the
+    parameter: the model runs each block on the dims that the placement
+    gives it (GPT.check_placement, Placement.check)."""
+    mesh = tmesh.fake_mesh(2, tensor=2)
+    model = tgpt.gpt_init(tgpt.GPTConfig.tiny(), device="cpu")
+    strategy = tsh.ShardingStrategy(
+        "custom", tsh.ShardingRules(rules=[rule], default=()), ("data",))
+    with pytest.raises(ValueError, match=match):
+        tsh.shard_params(model, mesh, strategy)
+
+
+def test_sp_ep_specs():
+    """ShardingStrategy.sp_ep (the JAX dry run's strategy): experts over
+    'expert', the router and everything else replicated, rows over
+    'data'."""
+    cfg = dataclasses.replace(tgpt.GPTConfig.tiny(), n_experts=4)
+    mesh = tmesh.fake_mesh(8, data=2, sequence=2, expert=2)
+    strategy = tsh.ShardingStrategy.sp_ep()
+    specs = strategy.param_specs(mesh, tgpt.gpt_init(cfg, device="cpu"))
+    split = {p for p, s in specs.items() if s != () and set(s) != {None}}
+    assert split == {f"layers/{i}/moe/{w}" for i in range(cfg.n_layers)
+                     for w in ("w_gate", "w_up", "w_down")}
+    assert all(specs[p] == ("expert", None, None) for p in split)
+    assert strategy.batch_spec == ("data",)

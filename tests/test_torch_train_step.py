@@ -181,10 +181,10 @@ def test_eval_step_matches_loss():
 @pytest.mark.parametrize("kw,error,match", [
     (dict(mesh=object()), TypeError, "parallel.mesh.Mesh"),
     (dict(mesh=object(), strategy="dp"), TypeError, "parallel.mesh.Mesh"),
-    (dict(strategy="fsdp"), NotImplementedError,
-     "ROADMAP queue 1, item 'FSDP2/TP/tp_fsdp execution'"),
-    (dict(strategy="tp"), NotImplementedError,
-     "ROADMAP queue 1, item 'FSDP2/TP/tp_fsdp execution'"),
+    (dict(strategy="pp"), NotImplementedError,
+     "ROADMAP queue 1, item 'pipeline.py'"),
+    (dict(strategy="pp_tp"), NotImplementedError,
+     "ROADMAP queue 1, item 'pipeline.py'"),
 ])
 def test_sharding_is_not_ported(kw, error, match):
     """A mesh that is not the port's raises TypeError; the presets whose

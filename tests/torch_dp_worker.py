@@ -1,31 +1,60 @@
-"""One rank of a data-parallel training run of the port, for
-tests/test_torch_dp.py (gloo ranks on the CPU) and tests/test_torch_cuda.py
-(NCCL ranks, one per card). Imports torch, numpy and ray_tpu_torch only
-(no JAX: the tests compute the reference in their own process).
+"""One rank of a training run of the port across processes, for
+tests/test_torch_dp.py, test_torch_strategies.py, test_torch_ep.py (gloo
+ranks on the CPU) and tests/test_torch_cuda.py (NCCL ranks, one per card).
+Imports torch, numpy and ray_tpu_torch only (no JAX: the tests compute the
+reference in their own process).
 
     python tests/torch_dp_worker.py RANK WORLD STORE_FILE IN.npz OUT.npz [DEVICE]
 
-IN.npz holds the config (``n_experts``, ``remat_policy``, ``accum_steps``,
-``steps``), the global batch (``tokens``) and the initial weights
-(``param:<dotted name>``). The rank joins a world through a FileStore at
-STORE_FILE (DEVICE "cpu", the default: gloo, every rank on the CPU;
-"cuda": NCCL, rank r on cuda:r), builds ``build_mesh(MeshConfig(
-data=WORLD), devices)``, takes ``steps`` AdamW(3e-4) steps through
-``init_train_state``/``make_train_step(..., mesh, "dp")`` on the global
-batch, then evaluates it with ``make_eval_step``. OUT.npz holds each
-step's metrics and the gradients AdamW was given, the eval loss, and the
-final weights.
+The rank joins a world through a FileStore at STORE_FILE (DEVICE "cpu",
+the default: gloo, every rank on the CPU; "cuda": NCCL, rank r on
+cuda:r) and takes the runs that IN.npz lists, in order, in that world.
+
+IN.npz holds ``runs``, a JSON list of runs, each a dict with the keys
+``tag`` (prefix of its keys in OUT.npz), ``strategy`` (a preset's name,
+or "sp_ep": ``ShardingStrategy.sp_ep()``), ``mesh``
+(axis sizes), ``cfg`` (GPTConfig fields over GPTConfig.tiny() in fp32),
+``accum_steps``, ``steps``, ``tokens`` and ``params`` (the keys of the
+global batch and the prefix of the initial weights ``<params><dotted
+name>``, loaded into the placed model's shards by
+``convert.load_params``); or ``kind`` "ring" with ``mesh``, ``q``, ``k``, ``v`` and ``w``
+(global [B, H, S, D] arrays: ring attention of this rank's sequence shard,
+and the gradients of sum(out * w)); or ``kind`` "count" with ``mesh``,
+``strategy``, ``cfg``, ``tokens`` and ``policies`` (the all_reduce calls
+of one gpt_loss's forward and backward under each remat policy, in
+``<policy>``).
+
+A run of ``kind`` "card" (tests/test_torch_cuda.py) trains GPTConfig's
+``preset`` ("gpt2_small") with ``cfg`` over it, in ``dtype``, from the
+port's init (CPU generator, seed 0) on ``batch`` x ``seq`` tokens from
+numpy's seed 1: ``steps`` counted steps (loss, grad norm, host-clock ms,
+K1-K3 launches of each), their peak memory, one more step under
+torch.profiler (the device ms of its kernels but NCCL's, and NCCL's
+kernels' ms apart), and the MoE routing of step 0's forward
+(``routing<layer>``, this rank's rows and positions).
+
+A training run builds ``build_mesh``, takes ``steps`` AdamW(3e-4) steps
+through ``init_train_state``/``make_train_step`` on the global batch, and
+evaluates it with ``make_eval_step``. OUT.npz holds, under the run's tag,
+each step's ``loss`` and ``grad_norm``, ``eval_loss``, the rank's shards
+of the initial weights (``shard:<name>``), the final weights gathered
+whole (``param:<name>``), the mesh coordinate (``coord``) and, under
+``dp``, the gradients AdamW was given (``grad<i>:<name>``). A ring run
+holds ``out``, ``dq``, ``dk`` and ``dv`` of its shard.
 """
 
 import dataclasses
+import json
 import sys
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from ray_tpu_torch.models import GPTConfig, gpt_init, gpt_loss
-from ray_tpu_torch.parallel import MeshConfig, build_mesh
+from ray_tpu_torch.models import GPTConfig, convert, gpt_init, gpt_loss
+from ray_tpu_torch.ops.attention import ring_attention
+from ray_tpu_torch.parallel import MeshConfig, ShardingStrategy, build_mesh
+from ray_tpu_torch.parallel.sharding import local_params
 from ray_tpu_torch.train import (AdamW, init_train_state, make_eval_step,
                                  make_train_step)
 
@@ -42,18 +71,195 @@ class _RecordingAdamW(AdamW):
         return super().update(grads, state, params)
 
 
+def _strategy(name):
+    """A preset's name as is; "sp_ep" as ``ShardingStrategy.sp_ep()``."""
+    return ShardingStrategy.sp_ep() if name == "sp_ep" else name
+
+
+def _train(run, data, devices, result):
+    tag = run["tag"]
+    cfg = dataclasses.replace(GPTConfig.tiny(), dtype=torch.float32,
+                              **run["cfg"])
+    accum, steps = run["accum_steps"], run["steps"]
+    prefix = run["params"]
+    weights = convert.unflatten({k[len(prefix):]: data[k] for k in data.files
+                                 if k.startswith(prefix)})
+    tokens = torch.from_numpy(data[run["tokens"]]).long()
+    strategy = _strategy(run["strategy"])
+    mesh = build_mesh(MeshConfig(**run["mesh"]), devices=devices)
+    opt = _RecordingAdamW(3e-4)
+    # The port's own init, placed; then the given weights into the shards.
+    state = init_train_state(lambda: gpt_init(cfg, device="cpu"), opt, mesh,
+                             strategy)
+    convert.load_params(state.params, weights)
+    names = [n for n, _ in state.params.named_parameters()]
+    for name, t in zip(names, local_params(state.params)):
+        result[f"{tag}shard:{name}"] = t.detach().cpu().numpy().copy()
+    step = make_train_step(gpt_loss, opt, mesh, strategy, accum_steps=accum)
+    losses, norms = [], []
+    for _ in range(steps):
+        state, metrics = step(state, {"tokens": tokens})
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    flat = tokens.reshape(-1, tokens.shape[-1]) if accum else tokens
+    ev = make_eval_step(gpt_loss, mesh, strategy)(state.params,
+                                                  {"tokens": flat})
+    result.update({f"{tag}loss": np.array(losses),
+                   f"{tag}grad_norm": np.array(norms),
+                   f"{tag}eval_loss": np.array(float(ev)),
+                   f"{tag}coord": np.array(list(mesh.coordinate().values()))})
+    for name, p in convert.flatten(
+            convert.params_to_numpy(state.params)).items():
+        result[f"{tag}param:{name}"] = p
+    if run["strategy"] == "dp":
+        for i, grads in enumerate(opt.seen):
+            for name, g in zip(names, grads):
+                result[f"{tag}grad{i}:{name}"] = g.cpu().numpy()
+
+
+def _ring(run, data, devices, result):
+    """Ring attention of this rank's shard of q, k, v, and the gradients of
+    sum(out * w) on it."""
+    tag = run["tag"]
+    mesh = build_mesh(MeshConfig(**run["mesh"]), devices=devices)
+    seq = mesh.axis("sequence")
+    dev = mesh.device
+
+    def shard(key):
+        full = torch.from_numpy(data[run[key]])
+        n = full.shape[2] // seq.size
+        return full[:, :, seq.index * n:(seq.index + 1) * n].to(dev)
+
+    q, k, v = (shard(key).requires_grad_() for key in ("q", "k", "v"))
+    out = ring_attention(q, k, v, mesh=mesh, causal=True)
+    torch.sum(out * shard("w")).backward()
+    for key, t in (("out", out), ("dq", q.grad), ("dk", k.grad),
+                   ("dv", v.grad)):
+        result[f"{tag}{key}"] = t.detach().cpu().numpy()
+
+
+def _count(run, data, devices, result):
+    """all_reduce calls in the forward and in the backward of one gpt_loss
+    under each remat policy of ``policies``, in a step on ``mesh``."""
+    from ray_tpu_torch.parallel.mesh import data_parallel
+    from ray_tpu_torch.parallel.sharding import shard_params
+    tag = run["tag"]
+    mesh = build_mesh(MeshConfig(**run["mesh"]), devices=devices)
+    tokens = torch.from_numpy(data[run["tokens"]]).long()
+    calls = []
+    all_reduce = dist.all_reduce
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return all_reduce(*args, **kwargs)
+
+    dist.all_reduce = counted
+    try:
+        for policy in run["policies"]:
+            cfg = dataclasses.replace(GPTConfig.tiny(), dtype=torch.float32,
+                                      remat_policy=policy, **run["cfg"])
+            model = gpt_init(cfg, device="cpu")
+            shard_params(model, mesh, _strategy(run["strategy"]))
+            with data_parallel(mesh, ("data",)):
+                calls.clear()
+                loss = gpt_loss(model, {"tokens": tokens})
+                forward = len(calls)
+            # Outside the step's context, as the CUDA autograd engine runs
+            # the backward on a thread of its own, which does not inherit it.
+            calls.clear()
+            loss.backward()
+            result[f"{tag}{policy}"] = np.array([forward, len(calls)])
+    finally:
+        dist.all_reduce = all_reduce
+
+
+def card_model(run):
+    """(config, the whole model on the CPU, the global batch) of a "card"
+    run: the same on every rank and in a one-card reference."""
+    cfg = dataclasses.replace(getattr(GPTConfig, run["preset"])(),
+                              dtype=getattr(torch, run["dtype"]),
+                              **run["cfg"])
+    model = gpt_init(cfg, device="cpu",
+                     generator=torch.Generator().manual_seed(0))
+    toks = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (run["batch"], run["seq"] + 1))
+    return cfg, model, {"tokens": torch.from_numpy(toks).long()}
+
+
+def card(run, devices, result, world_of_one=False):
+    """A "card" run (module doc) on this rank, or, ``world_of_one``, on the
+    first device alone (the one-card reference: same code, every mesh axis
+    of size 1)."""
+    import time
+
+    import chip_smoke
+    from ray_tpu_torch.ops.attention import KERNELS
+    tag = run["tag"]
+    cfg, model, batch = card_model(run)
+    strategy = _strategy(run["strategy"])
+    mesh = build_mesh(MeshConfig(**({} if world_of_one else run["mesh"])),
+                      devices=devices[:1] if world_of_one else devices)
+    cuda = mesh.device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    opt = AdamW(3e-4)
+    state = init_train_state(lambda: model, opt, mesh, strategy)
+    step = make_train_step(gpt_loss, opt, mesh, strategy)
+    routing = {}
+    losses, norms, times, launches = [], [], [], []
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for i in range(run["steps"]):
+        before = [k.launches for k in KERNELS.values()]
+        sync()
+        t0 = time.perf_counter()
+        with chip_smoke._moe_routing(
+                state.params, record=routing if i == 0 else None):
+            state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+        norms.append(float(metrics["grad_norm"]))
+        launches.append([k.launches - b
+                         for k, b in zip(KERNELS.values(), before)])
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    device_ms = nccl_ms = 0.0
+    if cuda:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, metrics = step(state, batch)
+            float(metrics["loss"])
+            sync()
+        ops = [(e.key, chip_smoke._device_us(e) / 1e3)
+               for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        # NCCL kernels run on their own streams beside the compute and
+        # spin while they wait for the other ranks: kept apart. Each
+        # collective also has a "nccl:<op>" range on the device, which
+        # counts its kernel a second time.
+        nccl_ms = sum(ms for key, ms in ops if key.startswith("ncclDevKernel"))
+        device_ms = sum(ms for key, ms in ops if "nccl" not in key.lower())
+        result[f"{tag}top"] = np.array([f"{ms:.2f} ms {key[:80]}" for key, ms
+                                        in sorted(ops, key=lambda o: -o[1])[:6]])
+    result.update({f"{tag}loss": np.array(losses),
+                   f"{tag}grad_norm": np.array(norms),
+                   f"{tag}step_ms": np.array(times),
+                   f"{tag}launches": np.array(launches),
+                   f"{tag}peak_gb": np.array(peak),
+                   f"{tag}device_ms": np.array(device_ms),
+                   f"{tag}nccl_ms": np.array(nccl_ms),
+                   f"{tag}coord": np.array(list(mesh.coordinate().values()))})
+    for i, idx in routing.items():
+        if i != "aux":
+            result[f"{tag}routing{i}"] = idx.cpu().numpy()
+    del state, model
+    if cuda:
+        torch.cuda.empty_cache()
+
+
 def run(rank: int, world: int, store: str, inp: str, out: str,
         device: str = "cpu") -> None:
     data = np.load(inp)
-    cfg = dataclasses.replace(
-        GPTConfig.tiny(), dtype=torch.float32,
-        n_experts=int(data["n_experts"]),
-        remat_policy=str(data["remat_policy"]))
-    accum, steps = int(data["accum_steps"]), int(data["steps"])
-    weights = {k[len("param:"):]: torch.from_numpy(data[k])
-               for k in data.files if k.startswith("param:")}
-    tokens = torch.from_numpy(data["tokens"]).long()
-
+    runs = json.loads(str(data["runs"]))
     if device == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False   # fp32 is fp32
         devices = [f"cuda:{r}" for r in range(world)]
@@ -63,32 +269,13 @@ def run(rank: int, world: int, store: str, inp: str, out: str,
                             init_method=f"file://{store}", rank=rank,
                             world_size=world)
     try:
-        mesh = build_mesh(MeshConfig(data=world), devices=devices)
-
-        def init():
-            model = gpt_init(cfg, device="cpu")
-            model.load_state_dict(weights)
-            return model
-
-        opt = _RecordingAdamW(3e-4)
-        state = init_train_state(init, opt, mesh, "dp")
-        step = make_train_step(gpt_loss, opt, mesh, "dp", accum_steps=accum)
-        losses, norms = [], []
-        for _ in range(steps):
-            state, metrics = step(state, {"tokens": tokens})
-            losses.append(float(metrics["loss"]))
-            norms.append(float(metrics["grad_norm"]))
-        flat = tokens.reshape(-1, tokens.shape[-1]) if accum else tokens
-        ev = make_eval_step(gpt_loss, mesh, "dp")(state.params,
-                                                  {"tokens": flat})
-        names = [n for n, _ in state.params.named_parameters()]
-        result = {"loss": np.array(losses), "grad_norm": np.array(norms),
-                  "eval_loss": np.array(float(ev))}
-        for name, p in state.params.named_parameters():
-            result[f"param:{name}"] = p.detach().cpu().numpy()
-        for i, grads in enumerate(opt.seen):
-            for name, g in zip(names, grads):
-                result[f"grad{i}:{name}"] = g.cpu().numpy()
+        result = {}
+        for spec in runs:
+            if spec.get("kind") == "card":
+                card(spec, devices, result)
+            else:
+                {"ring": _ring, "count": _count}.get(
+                    spec.get("kind"), _train)(spec, data, devices, result)
         np.savez(out, **result)
     finally:
         dist.destroy_process_group()

@@ -42,6 +42,12 @@ Phases, each of which raises on failure:
       through (i)'s train path, gate and controls against reference
       attention; and the dry run's "sp_ep" (ring attention and MoE, 4
       experts) likewise, its reference steps replaying routing;
+  (l) GPT-2 small in the pipeline layout under "pp" (pipeline=1, 4
+      microbatches), fed by data.feed.device_batch_stream from numpy
+      batches: launches 2ML/ML/ML per step at B·H 24, the step-0 gate
+      against reference attention with its controls, falling losses, and
+      a sharded checkpoint of the state after step 2 whose restored step 3
+      equals the uninterrupted step 3 bit for bit;
   (g) one line {"kernels": [...]} (launches from the main path, e);
   (h) last line {"ok": true, "device": {...}}.
 
@@ -313,6 +319,11 @@ def phase_kernels() -> dict:
     run((m["batch"] * 16, m["seq"], m["seq"], m["head_dim"], m["dtype"],
          True, 128, 128), f"gpt2-medium shape bh={m['batch'] * 16} "
                           f"s={m['seq']} d={m['head_dim']} bf16 causal")
+    # Phase (l): GPT-2 small's heads over one microbatch of the pipeline.
+    bh = m["batch"] // PP_MICROBATCHES * m["heads"]
+    run((bh, m["seq"], m["seq"], m["head_dim"], m["dtype"], True, 128, 128),
+        f"pp microbatch shape bh={bh} s={m['seq']} d={m['head_dim']} "
+        f"bf16 causal")
     log(f"[c] tolerance: |kernel - plain| <= rtol (|plain| + |W||X|), rtol "
         f"fp32 {RTOL[torch.float32]:.0e} bf16 2^-7, plus for bf16 dQ and "
         f"dK p |dO||V|^T D 2^-22 through |K| and |Q|; |lse - plain| <= "
@@ -376,25 +387,33 @@ def phase_forward(cfg=None, tag="d", label="gpt2-small") -> None:
 # ---------------------------------------------------------------------------
 
 def _run_steps(model, n, batch, around=lambda i: contextlib.nullcontext(),
-               strategy="dp"):
-    """n steps from a fresh optimizer state through the entry points of
-    bench.py:bench_model (build_mesh, init_train_state and make_train_step
-    with ``strategy``, "dp" there); step i runs inside ``around(i)``."""
+               strategy="dp", make_loss=None, state=None,
+               after=lambda i, state: None):
+    """n steps through the entry points of bench.py:bench_model
+    (build_mesh, init_train_state and make_train_step with ``strategy``,
+    "dp" there), from a fresh optimizer state or from ``state`` (a
+    TrainState of ``model``); step i runs inside ``around(i)`` on
+    ``batch`` (or ``batch[i]``, a list), and ``after(i, state)`` runs
+    after it, outside the clock. ``make_loss(mesh)``: the loss function
+    (default gpt_loss)."""
     from ray_tpu_torch.models import gpt_loss
     from ray_tpu_torch.ops.attention import KERNELS
     from ray_tpu_torch.parallel import MeshConfig, build_mesh
     from ray_tpu_torch.train import adamw, init_train_state, make_train_step
     mesh = build_mesh(MeshConfig(data=1))
     opt = adamw(3e-4)
-    state = init_train_state(lambda: model, opt, mesh, strategy)
-    step = make_train_step(gpt_loss, opt, mesh, strategy)
+    if state is None:
+        state = init_train_state(lambda: model, opt, mesh, strategy)
+    loss_fn = gpt_loss if make_loss is None else make_loss(mesh)
+    step = make_train_step(loss_fn, opt, mesh, strategy)
     losses, norms, times, counts = [], [], [], []
     for i in range(n):
         before = {k: kern.launches for k, kern in KERNELS.items()}
         torch.cuda.synchronize()
         with around(i):
             t0 = time.perf_counter()
-            state, metrics = step(state, batch)
+            state, metrics = step(state, batch[i] if isinstance(
+                batch, list) else batch)
             loss = float(metrics["loss"])  # host readback ends the step
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
@@ -402,6 +421,7 @@ def _run_steps(model, n, batch, around=lambda i: contextlib.nullcontext(),
         norms.append(float(metrics["grad_norm"]))
         counts.append({k: kern.launches - before[k]
                        for k, kern in KERNELS.items()})
+        after(i, state)
     return losses, norms, times, counts
 
 
@@ -645,17 +665,19 @@ def _device_us(ev) -> float:
     return 0.0
 
 
-def _profile_step(model, batch, tag="e", label="flash step", top=10
-                  ) -> None:
+def _profile_step(model, batch, tag="e", label="flash step", top=10,
+                  **steps) -> None:
     """One warm-up step, then one step under torch.profiler: each kernel's
     device time in the step, the top ``top`` device ops by time, and the
-    kernels' share of the step's device time."""
+    kernels' share of the step's device time. ``steps``: ``_run_steps``'s
+    strategy and loss."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     _, _, times, counts = _run_steps(
         model, 2, batch,
-        around=lambda i: prof if i == 1 else contextlib.nullcontext())
+        around=lambda i: prof if i == 1 else contextlib.nullcontext(),
+        **steps)
     ops = [(e.key, e.count, _device_us(e) / 1e3)
            for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
@@ -802,6 +824,183 @@ def phase_strategies(e_step0) -> None:
     torch.cuda.empty_cache()
 
 
+PP_MICROBATCHES = 4   # phase (l): 2 rows each at batch 8
+PP_STEPS = 4          # the checkpoint is saved after step 2, step 3 replayed
+PP_SAVE_AFTER = 2
+
+
+def _pp_steps(model, n, batches, attention=None, **steps):
+    """``_run_steps`` of the pipeline layout under "pp": the GPipe loss of
+    parallel.pipeline with PP_MICROBATCHES, attention replaced by
+    ``attention`` (the controls) where given."""
+    from ray_tpu_torch.parallel import pipeline as P
+    saved = P.flash_attention
+    if attention is not None:
+        P.flash_attention = attention
+    try:
+        return _run_steps(model, n, batches, strategy="pp", make_loss=(
+            lambda mesh: P.make_gpt_pp_loss(model.cfg, mesh,
+                                            PP_MICROBATCHES)), **steps)
+    finally:
+        P.flash_attention = saved
+
+
+def _stacked(cfg, weights):
+    """A StackedGPT on the card from ``weights`` ({name: tensor})."""
+    from ray_tpu_torch.parallel.pipeline import StackedGPT
+    return StackedGPT(cfg, {k: v.to("cuda", copy=True)
+                            for k, v in weights.items()})
+
+
+def phase_pipeline() -> None:
+    """(l) GPT-2 small in the pipeline layout (parallel.pipeline.StackedGPT)
+    under "pp" in a world of one (pipeline=1, as in JAX), batch 8, seq 1024,
+    bf16, remat full, PP_MICROBATCHES microbatches, through build_mesh ->
+    init_train_state(..., mesh, "pp") -> make_train_step(make_gpt_pp_loss);
+    the batches come through data.feed.device_batch_stream from a numpy
+    iterator and must arrive on the card equal to the source rows. Gates:
+    step 0 against reference attention on the same stacked weights, which
+    two wrong-attention controls must fail; losses finite and falling;
+    launches exactly 2ML/ML/ML per step at B·H (B/M)·H. Then the checkpoint
+    round trip: the state after step 2 saved (train.checkpoint) to a
+    temporary directory and loaded into a fresh model; step 3 from it must
+    equal the uninterrupted step 3 bit for bit, in the loss and in every
+    parameter. The directory is deleted."""
+    import itertools
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.data import device_batch_stream
+    from ray_tpu_torch.models import GPTConfig, count_params, gpt_init
+    from ray_tpu_torch.ops.attention import KERNELS
+    from ray_tpu_torch.parallel import MeshConfig, build_mesh
+    from ray_tpu_torch.parallel import pipeline as P
+    from ray_tpu_torch.train import adamw, init_train_state, load_pytree
+    from ray_tpu_torch.train import save_pytree
+    cfg = GPTConfig.gpt2_small()
+    bs, seq, m = MAIN["batch"], MAIN["seq"], PP_MICROBATCHES
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    flash = P.gpt_params_to_pp(gpt_init(cfg, device="cuda", generator=gen))
+    init = {k: v.detach().cpu() for k, v in flash.state_dict().items()}
+    log(f"[l] gpt2-small stacked layout ({count_params(flash):,} params, "
+        f"stacked.attn.wq {tuple(flash.stacked.attn.wq.shape)}), bs {bs} "
+        f"seq {seq}, {m} microbatches of {bs // m} rows, remat full, "
+        f"AdamW(3e-4), entry points build_mesh(MeshConfig(data=1)) -> "
+        f"init_train_state(..., mesh, 'pp') -> make_train_step("
+        f"make_gpt_pp_loss(cfg, mesh, {m}), ..., mesh, 'pp')")
+
+    source = {"tokens": _tokens(cfg, bs, seq + 1).cpu().numpy()}
+    mesh = build_mesh(MeshConfig(data=1))
+    batches = list(device_batch_stream(itertools.repeat(source, PP_STEPS),
+                                       mesh, "pp"))
+    torch.cuda.synchronize()
+    for b in batches:
+        t = b["tokens"]
+        if t.device.type != "cuda" or not torch.equal(
+                t.cpu(), torch.from_numpy(source["tokens"])):
+            raise AssertionError(f"fed batch on {t.device}, dtype {t.dtype}, "
+                                 "differs from the source rows")
+    log(f"[l] data feed: {len(batches)} batches of {tuple(t.shape)} "
+        f"{t.dtype} on {t.device}, equal to the numpy source rows")
+
+    controls = {name: _pp_steps(_stacked(cfg, init), 1, batches, fn)
+                for name, fn in CONTROLS}
+    controls = {name: (res[0][0], res[1][0]) for name, res in
+                controls.items()}
+    ref_cfg = dataclasses.replace(cfg, attention="reference")
+    r_loss, r_norm, r_times, _ = _pp_steps(_stacked(ref_cfg, init), 2,
+                                           batches)
+    torch.cuda.empty_cache()
+
+    heads = []
+
+    def attention(q, k, v, **kw):
+        heads.append(q.shape[0] * q.shape[1])
+        return P_flash(q, k, v, **kw)
+    P_flash = P.flash_attention
+    P.flash_attention = attention
+    kept = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pp_")
+
+    def after(i, state):
+        if i == PP_SAVE_AFTER:
+            save_pytree(state, tmp)
+        kept["state"] = state
+    for kern in KERNELS.values():
+        kern.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        f_loss, f_norm, f_times, f_counts = _pp_steps(
+            flash, PP_STEPS, batches, after=after)
+    finally:
+        P.flash_attention = P_flash
+    launches = {k: kern.launches for k, kern in KERNELS.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for i in range(PP_STEPS):
+        log(f"[l] flash step {i}: loss {f_loss[i]:.5f} grad_norm "
+            f"{f_norm[i]:.5f} {1e3 * f_times[i]:.1f} ms launches "
+            f"{f_counts[i]}")
+    step_ms = 1e3 * statistics.median(f_times[1:])
+    log(f"[l] flash: step {step_ms:.1f} ms (median of steps 1-"
+        f"{PP_STEPS - 1}), {bs * seq / step_ms * 1e3:,.0f} tok/s, peak "
+        f"memory {peak_gb:.1f} GB; reference steps {r_loss} in "
+        f"{[round(1e3 * t, 1) for t in r_times]} ms")
+    log(f"[l] launches over {PP_STEPS} steps: {launches}; B·H of the "
+        f"attention calls: {sorted(set(heads))}")
+    n = m * cfg.n_layers
+    expected = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    if any(c != expected for c in f_counts):
+        raise AssertionError(f"pp launches {f_counts} != {expected}")
+    if set(heads) != {bs // m * cfg.n_heads}:
+        raise AssertionError(f"pp attention at B·H {sorted(set(heads))}")
+    if not all(math.isfinite(x) for x in f_loss + f_norm):
+        raise AssertionError(f"pp: non-finite loss or grad norm: {f_loss}")
+    if not f_loss[-1] < f_loss[0]:
+        raise AssertionError(f"pp: loss did not fall: {f_loss}")
+    ref = (r_loss[0], r_norm[0])
+    if not _gate("l", f_loss[0], f_norm[0], ref, "pp flash vs reference"):
+        raise AssertionError("pp: step 0 differs from the reference step")
+    passed = [name for name, res in controls.items()
+              if _gate("l", *res, ref, f"pp control ({name})")]
+    if passed:
+        raise AssertionError(f"pp: the step-0 gate passes wrong attention: "
+                             f"{passed}")
+
+    # The checkpoint round trip: step 3 from the state saved after step 2.
+    done = kept.pop("state")
+    want = {n_: p.detach().clone() for n_, p in
+            done.params.named_parameters()}
+    del done, flash
+    torch.cuda.empty_cache()
+    try:
+        size = sum(os.path.getsize(os.path.join(tmp, f))
+                   for f in os.listdir(tmp))
+        fresh = _stacked(cfg, init)
+        state = init_train_state(lambda: fresh, adamw(3e-4), mesh, "pp")
+        state = load_pytree(tmp, state=state)
+        loss, _, _, _ = _pp_steps(fresh, 1, batches[PP_SAVE_AFTER + 1:],
+                                  state=state)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = [n_ for n_, p in fresh.named_parameters()
+            if not torch.equal(p.detach(), want[n_])]
+    log(f"[l] checkpoint after step {PP_SAVE_AFTER}: {size / 1e9:.2f} GB "
+        f"(state.h0.npz, state.index.json, state.leaves.json; deleted), "
+        f"restored into a fresh model at step {state.step}: step "
+        f"{PP_SAVE_AFTER + 1} loss {loss[0]!r} against {f_loss[-1]!r} "
+        f"uninterrupted; parameters differing: {same or 'none'}")
+    if loss[0] != f_loss[PP_SAVE_AFTER + 1] or same:
+        raise AssertionError("pp: the restored step differs from the "
+                             "uninterrupted one")
+    del fresh, state, want
+    torch.cuda.empty_cache()
+    _profile_step(_stacked(cfg, init), batches[0], "l", "pp step", top=5,
+                  strategy="pp", make_loss=lambda mesh: P.make_gpt_pp_loss(
+                      cfg, mesh, PP_MICROBATCHES))
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # (f) kernel timing
 # ---------------------------------------------------------------------------
@@ -928,6 +1127,7 @@ def main() -> int:
     phase_moe()
     phase_medium()
     phase_strategies(e_step0)
+    phase_pipeline()
     kernels = [dict(name=n, route="cuda", source=SOURCES[n],
                     replaces=REPLACES[n],
                     launches=launches[n], max_abs_err=errs[n],

@@ -6,7 +6,10 @@ the same names joined by dots (``layers.0.attn.wq``), with the same
 shapes, so nothing is transposed. A model placed on a mesh
 (``parallel.sharding.shard_params``) takes the JAX values straight into
 each rank's shards (``load_params``), and gives its whole parameters back
-as the JAX tree (``params_to_numpy``, which every rank calls).
+as the JAX tree (``params_to_numpy``, which every rank calls). The same
+functions move the pipeline layout (``parallel.pipeline.StackedGPT``, the
+JAX tree with ``stacked`` in place of ``layers``): its names are JAX's
+too, and a placed model's stage slices are its shards.
 """
 
 from __future__ import annotations

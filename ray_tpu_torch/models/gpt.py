@@ -218,6 +218,10 @@ class GPT(nn.Module):
         checks itself."""
         names = [name for name, _ in self.named_parameters()]
         for name in names:
+            if placement.split_dim(name, "pipeline") is not None:
+                raise ValueError(f"{name}: split over 'pipeline', which "
+                                 "splits the stacked layout only "
+                                 "(parallel.pipeline.StackedGPT)")
             for axis, dims in _SPLIT_DIMS.items():
                 dim = placement.split_dim(name, axis)
                 want = dims.get(_block_key(name))

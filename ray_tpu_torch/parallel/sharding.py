@@ -13,8 +13,10 @@ under the JAX names (``layers/0/attn/wq``: the module's dotted name with
 and ``shard_params(model, mesh, strategy)`` turns the specs into this
 rank's shards, the spec being the single source of truth: each rank holds
 of every parameter what the JAX array holds on the device at the same mesh
-coordinate. The tensor and expert axes leave a plain tensor, this rank's
-slice (Megatron style: the CUDA kernels take plain contiguous tensors); the
+coordinate. The tensor, expert and pipeline axes leave a plain tensor,
+this rank's slice (Megatron style: the CUDA kernels take plain contiguous
+tensors; the pipeline axis keeps a stage's layers of the stacked layout,
+``parallel.pipeline``); the
 fsdp axis goes to FSDP2, ``fully_shard`` on each layer and on the root over
 the fsdp sub-mesh, with each parameter's sharded dim taken from its spec
 and gradients summed, not averaged. ``gather_params`` returns the whole
@@ -248,9 +250,10 @@ def strategy_from_name(name: str) -> ShardingStrategy:
 # Placements: the specs turned into this rank's shards
 # ---------------------------------------------------------------------------
 
-# Axes that leave this rank a plain slice of a parameter; "fsdp" goes to
-# FSDP2. The batch axes never split a parameter.
-_SLICE_AXES = ("tensor", "expert")
+# Axes that leave this rank a plain slice of a parameter (the pipeline
+# axis: its stage's layers of the stacked layout); "fsdp" goes to FSDP2.
+# The batch axes never split a parameter.
+_SLICE_AXES = ("tensor", "expert", "pipeline")
 
 
 def entry_axes(entry) -> Tuple[str, ...]:
@@ -325,7 +328,8 @@ class Placement:
             if bad:
                 raise ValueError(f"{name}: spec {self.specs[name]} splits a "
                                  f"parameter over {bad}, which the port does "
-                                 "not place (only fsdp, tensor and expert)")
+                                 "not place (only fsdp, tensor, expert and "
+                                 "pipeline)")
             size = math.prod(self.mesh.shape[a] for a in axes)
             if shape[dim] % size:
                 raise ValueError(
@@ -338,9 +342,10 @@ class Placement:
                 if live[-1] != "fsdp":
                     raise ValueError(f"{name}: fsdp must come after the "
                                      f"other axes of dim {dim} in {entry}")
-            if len([a for a in live if a in _SLICE_AXES]) > 1:
-                raise ValueError(f"{name}: dim {dim} splits over both tensor "
-                                 f"and expert ({entry})")
+            sliced = [a for a in live if a in _SLICE_AXES]
+            if len(sliced) > 1:
+                raise ValueError(f"{name}: dim {dim} splits over both "
+                                 f"{sliced[0]} and {sliced[1]} ({entry})")
         if fsdp_dims > 1:
             raise ValueError(f"{name}: FSDP2 shards one dim, the spec "
                              f"{self.specs[name]} splits {fsdp_dims} over fsdp")
@@ -357,7 +362,8 @@ def shard_params(model: nn.Module, mesh, strategy: Union[ShardingStrategy,
     as ``strategy`` places them on ``mesh`` (``build_mesh``); returns the
     placement, also kept as ``model.placement``.
 
-    Tensor and expert axes: the parameter becomes its plain slice. The
+    Tensor, expert and pipeline axes: the parameter becomes its plain
+    slice. The
     fsdp axis, where it has more than one rank: FSDP2's ``fully_shard`` on
     each of ``model.layers`` and on the root, over the fsdp sub-mesh, with
     each parameter's sharded dim taken from its spec (``FSDP_LARGEST``

@@ -138,7 +138,25 @@ def test_mp_check_gang_on_cards_matches_one_process(card, data, fsdp):
     assert len(gang) == 2 and gang[0] == gang[1]
     assert all(abs(x - baseline) < 1e-5 for x in gang), (gang, baseline)
 
-# (tag, strategy, mesh over four cards, GPTConfig fields over gpt2_small)
+@pytest.mark.cuda
+@pytest.mark.timeout(300)
+def test_collective_across_cards(card, tmp_path):
+    """ray_tpu_torch.util.collective on a NCCL group of four ranks, one per
+    card: tests/test_torch_collective.py's three cases (6 reducescatter
+    rows: parts of 2, 2, 1, 1), checked against numpy. Needs four cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    import test_torch_collective as C
+    from test_torch_strategies import launch
+    run = dict(kind="collective", tag="", backend="nccl", rs_rows=6)
+    outs = launch(tmp_path, [run], {}, world=4, device="cuda", timeout=240)
+    C.test_collective_ops((4, outs))
+    C.test_symmetric_send_recv((4, outs))
+    C.test_allreduce_pytree((4, outs))
+
+
+# (tag, strategy, mesh over four cards, GPTConfig fields over gpt2_small);
+# the pipeline presets run PP_MICROBATCHES microbatches.
 ACROSS = [
     ("fsdp", "fsdp", dict(fsdp=4), {}),
     ("tp", "tp", dict(tensor=4), {}),
@@ -146,7 +164,10 @@ ACROSS = [
     ("tp_moe", "tp", dict(expert=4), dict(n_experts=4)),
     ("sp_ep", "sp_ep", dict(sequence=2, expert=2),
      dict(attention="ring", n_experts=4)),
+    ("pp", "pp", dict(pipeline=4), {}),
+    ("pp_tp", "pp_tp", dict(pipeline=2, tensor=2), {}),
 ]
+PP_MICROBATCHES = 4
 
 
 def _routing(ranks, tag, n_layers):
@@ -168,20 +189,25 @@ def _median_ms(times) -> float:
 
 
 @pytest.mark.cuda
-@pytest.mark.timeout(900)
+@pytest.mark.timeout(1000)
 def test_strategies_across_cards_match_one_card(card, tmp_path):
     """GPT-2 small at full width (bf16, batch 8, seq 1024, remat full), one
     NCCL rank per card on four cards, under fsdp (fsdp=4), tp (tensor=4),
-    tp_fsdp (2x2), tp with MoE (4 experts, expert=4) and the dry run's
-    sp_ep (sequence=2 x expert=2, ring attention, MoE 4 experts), each
-    against the same config on one card through the same code in a world
-    of one: step 0 within chip_smoke.py's gate (loss 1e-4, grad norm 2e-3
-    relative; for MoE the one-card step replays the four cards' routing,
-    as chip_smoke's phase (i) does), the same loss on every rank, losses
-    falling over 3 more steps, and per rank 2L/L/L launches of K1-K3 a
-    step (none under ring attention). Prints each side's step ms, profiled
-    device ms (NCCL's kernels apart: they overlap the compute and spin
-    while they wait) and peak memory. Needs four cards."""
+    tp_fsdp (2x2), tp with MoE (4 experts, expert=4), the dry run's
+    sp_ep (sequence=2 x expert=2, ring attention, MoE 4 experts), pp
+    (pipeline=4: 3 layers a stage) and pp_tp (pipeline=2 x tensor=2), the
+    pipeline presets with 4 microbatches of 2 rows, each against the same
+    config on one card through the same code in a world of one: step 0
+    within chip_smoke.py's gate (loss 1e-4, grad norm 2e-3 relative; for
+    MoE the one-card step replays the four cards' routing, as chip_smoke's
+    phase (i) does), the same loss on every rank, losses falling over 3
+    more steps, and per rank 2n/n/n launches of K1-K3 a step, n = L (M L
+    / S for the pipeline: M microbatches, S stages; none under ring
+    attention). The tp_fsdp state, saved by train.checkpoint after its
+    steps, loads whole into a one-card state equal, bit for bit, to the
+    final parameters gathered from the four ranks. Prints each side's step
+    ms, profiled device ms (NCCL's kernels apart: they overlap the compute
+    and spin while they wait) and peak memory. Needs four cards."""
     if torch.cuda.device_count() < 4:
         pytest.skip("needs four cards")
     import subprocess
@@ -194,7 +220,13 @@ def test_strategies_across_cards_match_one_card(card, tmp_path):
                  dtype="bfloat16", cfg=cfg, strategy=strategy, mesh=mesh,
                  batch=8, seq=1024, steps=4)
             for tag, strategy, mesh, cfg in ACROSS]
-    ranks = launch(tmp_path, runs, {}, world=4, device="cuda", timeout=420)
+    for run in runs:
+        if run["strategy"].startswith("pp"):
+            run["microbatches"] = PP_MICROBATCHES
+        if run["strategy"] == "tp_fsdp":
+            run.update(save=str(tmp_path / "tp_fsdp_ckpt"),
+                       gathered=str(tmp_path / "tp_fsdp_gathered.npz"))
+    ranks = launch(tmp_path, runs, {}, world=4, device="cuda", timeout=600)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()
@@ -206,6 +238,8 @@ def test_strategies_across_cards_match_one_card(card, tmp_path):
         one = {}
         W.card(run, ["cuda:0"], one, world_of_one=True)
         n = 0 if cfg.attention == "ring" else cfg.n_layers
+        if run.get("microbatches"):
+            n = run["microbatches"] * n // run["mesh"]["pipeline"]
         for r, out in enumerate(ranks):
             print(f"[across] {tag} rank {r}: losses "
                   f"{np.round(out[tag + 'loss'], 5).tolist()}, step "
@@ -251,4 +285,27 @@ def test_strategies_across_cards_match_one_card(card, tmp_path):
                 failures.append(f"{tag} rank {r} launches "
                                 f"{out[tag + 'launches'].tolist()}")
         torch.cuda.empty_cache()
+    failures += _restore_whole_on_one_card(runs)
     assert not failures, failures
+
+
+def _restore_whole_on_one_card(runs) -> list:
+    """The tp_fsdp checkpoint loaded into a one-card state: every
+    parameter against the four ranks' gathered final ones, bit for bit.
+    -> failures."""
+    import torch_dp_worker as W
+
+    from ray_tpu_torch.models import gpt_init
+    from ray_tpu_torch.train import AdamW, init_train_state, load_pytree
+    run = next(r for r in runs if r.get("save"))
+    cfg, _, _ = W.card_model(run)
+    state = init_train_state(lambda: gpt_init(cfg, device="cuda"),
+                             AdamW(3e-4))
+    state = load_pytree(run["save"], state=state)
+    gathered = np.load(run["gathered"])
+    differ = [n for n, p in state.params.named_parameters()
+              if not np.array_equal(p.detach().cpu().numpy(), gathered[n])]
+    print(f"[across] tp_fsdp checkpoint at step {state.step}, loaded whole "
+          f"on one card: {len(gathered.files)} parameters, differing from "
+          f"the gathered ones: {differ or 'none'}")
+    return [f"tp_fsdp restore differs: {differ}"] if differ else []

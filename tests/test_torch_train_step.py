@@ -181,15 +181,10 @@ def test_eval_step_matches_loss():
 @pytest.mark.parametrize("kw,error,match", [
     (dict(mesh=object()), TypeError, "parallel.mesh.Mesh"),
     (dict(mesh=object(), strategy="dp"), TypeError, "parallel.mesh.Mesh"),
-    (dict(strategy="pp"), NotImplementedError,
-     "ROADMAP queue 1, item 'pipeline.py'"),
-    (dict(strategy="pp_tp"), NotImplementedError,
-     "ROADMAP queue 1, item 'pipeline.py'"),
 ])
 def test_sharding_is_not_ported(kw, error, match):
-    """A mesh that is not the port's raises TypeError; the presets whose
-    execution is not ported raise NotImplementedError naming their ROADMAP
-    item, in every entry point."""
+    """A mesh that is not the port's raises TypeError in every entry point.
+    (Every preset is executed: pp and pp_tp in tests/test_torch_pipeline.py.)"""
     opt = tts.adamw(3e-4)
     for build in (lambda: tts.make_train_step(tgpt.gpt_loss, opt, **kw),
                   lambda: tts.make_eval_step(tgpt.gpt_loss, **kw),

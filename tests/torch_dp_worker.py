@@ -1,6 +1,8 @@
 """One rank of a training run of the port across processes, for
-tests/test_torch_dp.py, test_torch_strategies.py, test_torch_ep.py (gloo
-ranks on the CPU) and tests/test_torch_cuda.py (NCCL ranks, one per card).
+tests/test_torch_dp.py, test_torch_strategies.py, test_torch_ep.py,
+test_torch_pipeline.py, test_torch_checkpoint.py, test_torch_collective.py,
+test_torch_feed.py (gloo ranks on the CPU) and tests/test_torch_cuda.py
+(NCCL ranks, one per card).
 Imports torch, numpy and ray_tpu_torch only (no JAX: the tests compute the
 reference in their own process).
 
@@ -24,6 +26,17 @@ and the gradients of sum(out * w)); or ``kind`` "count" with ``mesh``,
 of one gpt_loss's forward and backward under each remat policy, in
 ``<policy>``).
 
+A training run may also name ``microbatches`` (the pipeline layout,
+``parallel.pipeline``: StackedGPT and make_gpt_pp_loss with that many
+microbatches), ``grads`` (record AdamW's gradients and the final local
+shards, ``final:<name>``), ``saves`` ({step: directory}: the state saved by
+``train.checkpoint`` before that step) and ``restore`` (a directory the
+state is loaded from before the first step). ``kind`` "pytree" saves and
+loads tests/test_train.py's sharded tree in ``dir``; "collective" runs
+tests/test_collective.py's cases through ``util.collective`` on a
+``backend`` group; "feed" runs ``data.feed.device_batch_stream`` (its
+docstring gives the keys).
+
 A run of ``kind`` "card" (tests/test_torch_cuda.py) trains GPTConfig's
 ``preset`` ("gpt2_small") with ``cfg`` over it, in ``dtype``, from the
 port's init (CPU generator, seed 0) on ``batch`` x ``seq`` tokens from
@@ -31,7 +44,10 @@ numpy's seed 1: ``steps`` counted steps (loss, grad norm, host-clock ms,
 K1-K3 launches of each), their peak memory, one more step under
 torch.profiler (the device ms of its kernels but NCCL's, and NCCL's
 kernels' ms apart), and the MoE routing of step 0's forward
-(``routing<layer>``, this rank's rows and positions).
+(``routing<layer>``, this rank's rows and positions). With
+``microbatches`` it trains the pipeline layout; with ``save`` the state is
+saved there after the steps and rank 0 writes the gathered final
+parameters to ``gathered``.
 
 A training run builds ``build_mesh``, takes ``steps`` AdamW(3e-4) steps
 through ``init_train_state``/``make_train_step`` on the global batch, and
@@ -54,7 +70,10 @@ import torch.distributed as dist
 from ray_tpu_torch.models import GPTConfig, convert, gpt_init, gpt_loss
 from ray_tpu_torch.ops.attention import ring_attention
 from ray_tpu_torch.parallel import MeshConfig, ShardingStrategy, build_mesh
+from ray_tpu_torch.parallel.pipeline import (gpt_params_to_pp,
+                                             make_gpt_pp_loss)
 from ray_tpu_torch.parallel.sharding import local_params
+from ray_tpu_torch.train.checkpoint import load_pytree, save_pytree
 from ray_tpu_torch.train import (AdamW, init_train_state, make_eval_step,
                                  make_train_step)
 
@@ -88,22 +107,30 @@ def _train(run, data, devices, result):
     strategy = _strategy(run["strategy"])
     mesh = build_mesh(MeshConfig(**run["mesh"]), devices=devices)
     opt = _RecordingAdamW(3e-4)
+    init, loss_fn = lambda: gpt_init(cfg, device="cpu"), gpt_loss
+    if run.get("microbatches"):
+        init = lambda: gpt_params_to_pp(  # noqa: E731
+            gpt_init(cfg, device="cpu"))
+        loss_fn = make_gpt_pp_loss(cfg, mesh, run["microbatches"])
     # The port's own init, placed; then the given weights into the shards.
-    state = init_train_state(lambda: gpt_init(cfg, device="cpu"), opt, mesh,
-                             strategy)
+    state = init_train_state(init, opt, mesh, strategy)
     convert.load_params(state.params, weights)
+    if run.get("restore"):
+        state = load_pytree(run["restore"], state=state)
     names = [n for n, _ in state.params.named_parameters()]
     for name, t in zip(names, local_params(state.params)):
         result[f"{tag}shard:{name}"] = t.detach().cpu().numpy().copy()
-    step = make_train_step(gpt_loss, opt, mesh, strategy, accum_steps=accum)
+    step = make_train_step(loss_fn, opt, mesh, strategy, accum_steps=accum)
     losses, norms = [], []
-    for _ in range(steps):
+    for i in range(steps):
+        if str(i) in run.get("saves", {}):
+            save_pytree(state, run["saves"][str(i)])
         state, metrics = step(state, {"tokens": tokens})
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
     flat = tokens.reshape(-1, tokens.shape[-1]) if accum else tokens
-    ev = make_eval_step(gpt_loss, mesh, strategy)(state.params,
-                                                  {"tokens": flat})
+    ev = make_eval_step(loss_fn, mesh, strategy)(state.params,
+                                                 {"tokens": flat})
     result.update({f"{tag}loss": np.array(losses),
                    f"{tag}grad_norm": np.array(norms),
                    f"{tag}eval_loss": np.array(float(ev)),
@@ -111,10 +138,128 @@ def _train(run, data, devices, result):
     for name, p in convert.flatten(
             convert.params_to_numpy(state.params)).items():
         result[f"{tag}param:{name}"] = p
-    if run["strategy"] == "dp":
+    if run["strategy"] == "dp" or run.get("grads"):
         for i, grads in enumerate(opt.seen):
             for name, g in zip(names, grads):
                 result[f"{tag}grad{i}:{name}"] = g.cpu().numpy()
+    if run.get("grads"):
+        for name, t in zip(names, local_params(state.params)):
+            result[f"{tag}final:{name}"] = t.detach().cpu().numpy().copy()
+
+
+def _pytree(run, data, devices, result):
+    """tests/test_train.py::test_save_load_pytree_sharded over the world:
+    {"w": [8, 4] sharded on dim 0, "b", "meta": {"step": 7}} saved in
+    ``dir``, loaded whole and onto dim 1."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    tag = run["tag"]
+    mesh = DeviceMesh("cpu", list(range(dist.get_world_size())))
+    tree = {"w": distribute_tensor(torch.arange(32.0).reshape(8, 4), mesh,
+                                   [Shard(0)]),
+            "b": torch.ones(3), "meta": {"step": 7}}
+    save_pytree(tree, run["dir"])
+    out = load_pytree(run["dir"])
+    again = load_pytree(run["dir"], shardings={
+        "w": (mesh, [Shard(1)]), "b": (mesh, [Replicate()]),
+        "meta": {"step": None}})
+    result.update({f"{tag}w": out["w"].numpy(), f"{tag}b": out["b"].numpy(),
+                   f"{tag}step": np.array(out["meta"]["step"]),
+                   f"{tag}w_local": again["w"].to_local().numpy(),
+                   f"{tag}w_full": again["w"].full_tensor().numpy(),
+                   f"{tag}b_local": again["b"].to_local().numpy()})
+
+
+def _collective(run, data, devices, result):
+    """tests/test_collective.py's three cases through
+    ray_tpu_torch.util.collective on a group of the whole world, gloo or
+    NCCL (``backend``); the reducescatter input has ``rs_rows`` rows."""
+    from ray_tpu_torch.util import collective as col
+    tag, world = run["tag"], dist.get_world_size()
+    rank = dist.get_rank()
+    name = tag or "g1"
+    if run["backend"] == "nccl":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+
+    def say(what):   # progress, in the test's message if a rank hangs
+        print(f"[collective] rank {rank}: {what}", flush=True)
+    say("joining")
+    col.init_collective_group(world, rank, backend=run["backend"],
+                              group_name=name)
+    say("joined")
+    x = np.full((4,), float(rank + 1))
+    result[f"{tag}allreduce"] = col.allreduce(x, group_name=name)
+    result[f"{tag}max"] = col.allreduce(x, group_name=name,
+                                        op=col.ReduceOp.MAX)
+    result[f"{tag}bcast"] = col.broadcast(
+        np.arange(3.0) if rank == 1 else None, src_rank=1, group_name=name)
+    gathered = col.allgather(np.arange(rank + 1), group_name=name)
+    result[f"{tag}allgather"] = np.concatenate(gathered)
+    result[f"{tag}rs"] = col.reducescatter(
+        np.arange(run["rs_rows"] * 2, dtype=np.float64).reshape(-1, 2),
+        group_name=name)
+    result[f"{tag}reduce"] = col.reduce(x, dst_rank=world - 1,
+                                        group_name=name)
+    say("collectives done")
+    col.barrier(group_name=name)
+    say("barrier")
+    if rank == 0:
+        col.send(np.array([42.0]), dst_rank=1, group_name=name)
+    elif rank == 1:
+        result[f"{tag}recv"] = col.recv(src_rank=0, group_name=name)
+    # Symmetric exchange between partners: every rank sends, then receives.
+    say("send/recv 0 -> 1")
+    peer = rank ^ 1
+    col.send(np.array([float(rank)]), dst_rank=peer, group_name=name)
+    result[f"{tag}sym"] = col.recv(src_rank=peer, group_name=name)
+    say("symmetric send/recv")
+    tree = {"w": np.ones((2, 2)) * (rank + 1), "b": [np.ones(2) * (rank + 1),
+                                                     torch.ones(3) * rank]}
+    out = col.allreduce(tree, group_name=name)
+    result[f"{tag}tree_w"] = out["w"]
+    result[f"{tag}tree_b0"] = out["b"][0]
+    result[f"{tag}tree_b1"] = out["b"][1].cpu().numpy()
+    col.destroy_collective_group(name)
+    say("done")
+
+
+def _feed(run, data, devices, result):
+    """data.feed.device_batch_stream of the batches ``batch<i>:<key>`` on
+    each (strategy, mesh, accum_steps) of ``cases`` (under accum_steps each
+    reshaped to [accum_steps, rows / accum_steps, ...]): this rank's rows
+    of every batch (``<case>/<i>:<key>``); then one train step from the
+    first batch so fed and one from the same batch whole, on the first
+    case (``step`` holds both losses)."""
+    from ray_tpu_torch.data import device_batch_stream
+    tag = run["tag"]
+    n = run["batches"]
+    batches = [{k.split(":", 1)[1]: data[k] for k in data.files
+                if k.startswith(f"batch{i}:")} for i in range(n)]
+    for c, (strategy, axes, accum) in enumerate(run["cases"]):
+        mesh = build_mesh(MeshConfig(**axes), devices=devices)
+        # Under accum_steps each batch carries a leading [accum] dim.
+        source = [{k: v.reshape((accum, -1) + v.shape[1:]) if accum else v
+                   for k, v in b.items()} for b in batches]
+        for i, b in enumerate(device_batch_stream(
+                iter(source), mesh, _strategy(strategy), accum_steps=accum)):
+            for key, t in b.items():
+                assert t.device == mesh.device
+                result[f"{tag}{c}/{i}:{key}"] = t.numpy()
+    strategy, axes, _ = run["cases"][0]
+    mesh = build_mesh(MeshConfig(**axes), devices=devices)
+    losses = []
+    for fed in (True, False):
+        cfg = dataclasses.replace(GPTConfig.tiny(), dtype=torch.float32)
+        opt = AdamW(3e-4)
+        state = init_train_state(lambda: gpt_init(cfg, device="cpu"), opt,
+                                 mesh, strategy)
+        step = make_train_step(gpt_loss, opt, mesh, strategy)
+        batch = {k: torch.from_numpy(v).long() for k, v in batches[0].items()}
+        if fed:
+            batch = next(device_batch_stream(iter([batches[0]]), mesh,
+                                             strategy, dtype=torch.long))
+        losses.append(float(step(state, batch)[1]["loss"]))
+    result[f"{tag}step"] = np.array(losses)
 
 
 def _ring(run, data, devices, result):
@@ -202,8 +347,12 @@ def card(run, devices, result, world_of_one=False):
     cuda = mesh.device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     opt = AdamW(3e-4)
+    loss_fn = gpt_loss
+    if run.get("microbatches"):
+        model = gpt_params_to_pp(model)
+        loss_fn = make_gpt_pp_loss(cfg, mesh, run["microbatches"])
     state = init_train_state(lambda: model, opt, mesh, strategy)
-    step = make_train_step(gpt_loss, opt, mesh, strategy)
+    step = make_train_step(loss_fn, opt, mesh, strategy)
     routing = {}
     losses, norms, times, launches = [], [], [], []
     if cuda:
@@ -251,6 +400,13 @@ def card(run, devices, result, world_of_one=False):
     for i, idx in routing.items():
         if i != "aux":
             result[f"{tag}routing{i}"] = idx.cpu().numpy()
+    if run.get("save") and not world_of_one:
+        from ray_tpu_torch.parallel.sharding import gather_params
+        save_pytree(state, run["save"])
+        whole = {n: p.cpu().numpy() for n, p in
+                 gather_params(state.params).items()}
+        if dist.get_rank() == 0:
+            np.savez(run["gathered"], **whole)
     del state, model
     if cuda:
         torch.cuda.empty_cache()
@@ -274,7 +430,8 @@ def run(rank: int, world: int, store: str, inp: str, out: str,
             if spec.get("kind") == "card":
                 card(spec, devices, result)
             else:
-                {"ring": _ring, "count": _count}.get(
+                {"ring": _ring, "count": _count, "pytree": _pytree,
+                 "collective": _collective, "feed": _feed}.get(
                     spec.get("kind"), _train)(spec, data, devices, result)
         np.savez(out, **result)
     finally:

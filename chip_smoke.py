@@ -48,6 +48,19 @@ Phases, each of which raises on failure:
       against reference attention with its controls, falling losses, and
       a sharded checkpoint of the state after step 2 whose restored step 3
       equals the uninterrupted step 3 bit for bit;
+  (m) RLlib on the card (ray_tpu_torch.rllib), runners and learners built
+      with device=None and composed as each algorithm's training_step
+      composes them, at the widths the JAX algorithms configure: PPO with
+      the legacy MLP on CartPole-v1 (4 envs, 3 iterations of 200 steps,
+      minibatch 128, 8 epochs), with the catalog CNN on GridGoal 84x84x1
+      (control: the conv map flattened NCHW) and with use_lstm on
+      StatelessCartPole (control: no forget-gate bias); one iteration each
+      of DQN (dueling off and on), C51, QR-DQN and Noisy DQN on CartPole
+      and of R2D2 on MemoryCue. Each first update is gated against the
+      port's CPU update of the same batch from the same weights, TF32 off;
+      each control must fail the gate. Update times (CUDA events), time
+      per env step, and sampling's copies, syncs and idle card under
+      torch.profiler. No kernel of K1-K3 runs here;
   (g) one line {"kernels": [...]} (launches from the main path, e);
   (h) last line {"ok": true, "device": {...}}.
 
@@ -1002,6 +1015,382 @@ def phase_pipeline() -> None:
 
 
 # ---------------------------------------------------------------------------
+# (m) RLlib on the card
+# ---------------------------------------------------------------------------
+
+# The widths the JAX algorithms configure: AlgorithmConfig's hidden
+# (64, 64), fragment 200, minibatch 128, 8 epochs, lr 5e-4
+# (ray_tpu/rllib/algorithm.py:26-32) for PPO; DQNConfig's fragment 32 and
+# train batch 64 (dqn.py:31-42), C51's 51 atoms on [-10, 10], QR-DQN's 32
+# quantiles, Noisy DQN's sigma0 0.5 and R2D2's 16-step sequences, LSTM cell
+# 32 and 16 sequences a batch, each its config's default.
+RL = dict(hidden=(64, 64), fragment=200, minibatch=128, epochs=8, lr=5e-4,
+          envs=4)
+RL_Q = dict(fragment=32, batch=64, r2d2_fragment=16, r2d2_cell=32,
+            r2d2_batch=16, epsilon=0.5, updates=2)
+# The gate: the card's first update against the port's CPU update of the
+# same batch from the same weights, TF32 off on the card (phase a):
+#   - the loss (PPO: the update's mean total loss) within RL_LOSS_RTOL,
+#     relative;
+#   - Adam's first moment after the update (an average of the update's
+#     gradients) within RL_MOMENT_RTOL of the CPU's in relative L2;
+#   - each parameter within Adam's own reach of the CPU's, 2 lr per step.
+# The parameters are not held closer: Adam's step m / (sqrt(v) + eps)
+# turns a gradient that is rounding noise (|g| near eps) into a step of up
+# to lr whose size and sign the two devices need not share, and one such
+# element in 11,000 moves the update's relative L2 by 2e-4 (C51, an H100
+# run: 2.48e-4, max |param diff| 1.28e-5, loss equal). The bounds are
+# several times the readings on an H100 (loss at most 1.6e-5, PPO's CNN,
+# whose mean loss is near 0; moment at most 3.3e-6, C51); the controls
+# read 4e-2 and more on the loss and 0.33 and more on the moment.
+RL_LOSS_RTOL = 1e-4
+RL_MOMENT_RTOL = 3e-5
+RL_TIMED = 3           # update repeats timed with CUDA events
+RL_PROFILED_STEPS = 20
+
+
+@contextlib.contextmanager
+def _patched(module, name, value):
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def _nchw_flatten(x):
+    """Control: the conv map flattened in torch's NCHW order."""
+    return x.reshape(x.shape[0], -1)
+
+
+def _cell_without_forget_bias(lstm, x, h, c):
+    """Control: the LSTM cell without the +1.0 on the forget gate."""
+    i, f, g, o = (x @ lstm.wx + h @ lstm.wh + lstm.b).chunk(4, dim=-1)
+    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c), c
+
+
+def _after(learner, w0, steps) -> dict:
+    """What a gate reads of an update: theta - theta_0 and Adam's first
+    moment per parameter (fp64, host; zeros where no gradient came), and
+    the number of Adam steps."""
+    state = learner.optimizer.state
+    weights = learner.get_weights()
+    delta, moment = {}, {}
+    for k, p in learner.module.named_parameters():
+        delta[k] = weights[k].double().cpu() - w0[k].double().cpu()
+        st = state.get(p)
+        moment[k] = (st["exp_avg"].double().cpu() if st
+                     else torch.zeros(p.shape, dtype=torch.float64))
+    return dict(delta=delta, moment=moment, steps=steps)
+
+
+def _steps(metrics) -> int:
+    return int(metrics.get("num_minibatch_updates", 1))
+
+
+def _rl_ref(make, w0, run, device="cpu"):
+    """A fresh learner on ``device`` holding w0 (and its target, as after
+    sync_target): one update by ``run``. -> (metrics, _after, host s)."""
+    learner = make(device)
+    learner.set_weights(w0)
+    if hasattr(learner, "target"):
+        learner.sync_target()
+    t0 = time.perf_counter()
+    metrics = run(learner)
+    seconds = time.perf_counter() - t0
+    return metrics, _after(learner, w0, _steps(metrics)), seconds
+
+
+def _rel_l2(a: dict, b: dict) -> float:
+    num = math.sqrt(sum(float(((a[k] - b[k]) ** 2).sum()) for k in b))
+    den = math.sqrt(sum(float((v ** 2).sum()) for v in b.values()))
+    return num / max(den, 1e-30)
+
+
+def _rl_gate(tag, label, card, ref, loss_key) -> bool:
+    (mc, ac), (mr, ar) = card, ref
+    lc, lr_ = float(mc[loss_key]), float(mr[loss_key])
+    loss_rel = abs(lc - lr_) / max(abs(lr_), 1e-30)
+    moment_rel = _rel_l2(ac["moment"], ar["moment"])
+    max_abs = max(float((ac["delta"][k] - ar["delta"][k]).abs().max())
+                  for k in ar["delta"])
+    reach = 2 * RL["lr"] * ar["steps"]
+    ok = (math.isfinite(lc) and loss_rel <= RL_LOSS_RTOL
+          and moment_rel <= RL_MOMENT_RTOL and max_abs <= reach)
+    log(f"[{tag}] gate {label}: {loss_key} {lc:.6g} against the CPU's "
+        f"{lr_:.6g}, rel {loss_rel:.2e} (tol {RL_LOSS_RTOL:.0e}); Adam's "
+        f"first moment rel {moment_rel:.2e} (tol {RL_MOMENT_RTOL:.0e}); "
+        f"max |param diff| {max_abs:.2e} (reach {reach:.1e} in "
+        f"{ar['steps']} steps); update rel "
+        f"{_rel_l2(ac['delta'], ar['delta']):.2e} (printed): "
+        f"{'pass' if ok else 'fail'}")
+    return ok
+
+
+def _rl_controls(tag, make, w0, run, ref, loss_key, controls) -> None:
+    for label, module, name, value in controls:
+        with _patched(module, name, value):
+            card = _rl_ref(make, w0, run, device=None)[:2]
+        if _rl_gate(tag, f"control, {label} (must fail)", card, ref,
+                    loss_key):
+            raise AssertionError(f"{tag}: the control '{label}' passed the "
+                                 "gate")
+
+
+def _rl_time_update(make, w0, run) -> float:
+    """Median CUDA-event ms of RL_TIMED updates of a fresh card learner from
+    w0 (the first, a warm-up, is left out)."""
+    learner = make(None)
+    learner.set_weights(w0)
+    run(learner)
+    times = []
+    for _ in range(RL_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run(learner)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _rl_report(tag, label, card_ms, cpu_s, sample_s, steps, envs) -> None:
+    log(f"[{tag}] {label}: update {card_ms:.2f} ms on the card (CUDA "
+        f"events, median of {RL_TIMED}), {1e3 * cpu_s:.2f} ms on the CPU "
+        f"(host clock, one update); sampling {1e3 * sample_s / steps:.3f} ms "
+        f"per vectorized step of {envs} envs, "
+        f"{1e3 * sample_s / (steps * envs):.3f} ms per env step (host "
+        f"clock, {steps} steps)")
+
+
+def _rl_profile_sampling(tag, runner, label) -> None:
+    """RL_PROFILED_STEPS vectorized steps of ``runner.sample`` under
+    torch.profiler: device-to-host and host-to-device copies, kernels and
+    device time per step, against the host clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    runner.sample(2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        runner.sample(RL_PROFILED_STEPS)
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+    d2h = h2d = kernels = copies = syncs = 0
+    device_ms = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            device_ms += _device_us(e) / 1e3
+            if "DtoH" in e.key:
+                d2h += e.count
+            elif "HtoD" in e.key:
+                h2d += e.count
+            elif "Memset" not in e.key:
+                kernels += e.count
+        elif e.key in ("cudaMemcpyAsync", "cudaMemcpy"):
+            copies += e.count
+        elif e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
+            syncs += e.count
+    n = RL_PROFILED_STEPS + 1     # the fragment's closing forward
+    log(f"[{tag}] {label} sampling under torch.profiler, {RL_PROFILED_STEPS} "
+        f"vectorized steps (+1 closing forward), per step: {d2h / n:.2f} "
+        f"device-to-host and {h2d / n:.2f} host-to-device copies "
+        f"({copies / n:.2f} cudaMemcpy(Async) calls, {syncs / n:.2f} "
+        f"stream syncs), {kernels / n:.1f} kernels, device "
+        f"{device_ms / n:.4f} ms of {host_ms / n:.3f} ms on the host clock "
+        f"(the card idle {100 * (1 - device_ms / host_ms):.1f}% of it)")
+
+
+def _rl_ppo(tag, label, env, env_config, model, iterations,
+            controls=()):
+    """PPO through its entry points: EnvRunner.sample -> concat_samples ->
+    PPOLearner.update -> EnvRunner.set_weights, runner and learner on the
+    card (device=None). -> the runner."""
+    from ray_tpu_torch.rllib.catalog import obs_shape_of
+    from ray_tpu_torch.rllib.env import make_env
+    from ray_tpu_torch.rllib.env_runner import EnvRunner
+    from ray_tpu_torch.rllib.learner import PPOLearner
+    from ray_tpu_torch.rllib.sample_batch import concat_samples
+    probe = make_env(env, env_config)
+    kw = dict(hidden=RL["hidden"], lr=RL["lr"], seed=SEED,
+              obs_shape=obs_shape_of(probe), model=model,
+              seq_len=RL["fragment"])
+
+    def make(device):
+        return PPOLearner(probe.observation_dim, probe.num_actions,
+                          device=device, **kw)
+
+    learner = make(None)
+    runner = EnvRunner(env, env_config, RL["envs"], SEED,
+                       hidden=RL["hidden"], model=model)
+    runner.set_weights(learner.get_weights())
+    upd = dict(minibatch_size=RL["minibatch"], num_epochs=RL["epochs"])
+    sample_s = []
+    for it in range(iterations):
+        t0 = time.perf_counter()
+        batch = concat_samples([runner.sample(RL["fragment"])])
+        sample_s.append(time.perf_counter() - t0)
+        run = lambda ln, it=it: ln.update(batch, seed=it, **upd)  # noqa
+        w0 = learner.get_weights()
+        metrics = run(learner)
+        if not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"{tag} {label}: metrics {metrics}")
+        log(f"[{tag}] {label} iteration {it}: {len(batch)} steps, "
+            f"{metrics['num_minibatch_updates']} minibatch updates, "
+            f"total_loss {metrics['total_loss']:.5f}, vf_loss "
+            f"{metrics['vf_loss']:.4f}, entropy {metrics['entropy']:.5f}, "
+            f"episodes ended {len(runner.episode_rewards(clear=False))}")
+        if it == 0:
+            ref_m, ref_d, cpu_s = _rl_ref(make, w0, run)
+            ref = (ref_m, ref_d)
+            if not _rl_gate(tag, f"{label}, first update", (
+                    metrics, _after(learner, w0, _steps(metrics))), ref,
+                    "total_loss"):
+                raise AssertionError(f"{tag}: {label} failed the gate")
+            _rl_controls(tag, make, w0, run, ref, "total_loss", controls)
+            first = (w0, run)
+        runner.set_weights(learner.get_weights())
+    card_ms = _rl_time_update(make, *first)
+    _rl_report(tag, f"PPO {label}", card_ms, cpu_s,
+               statistics.median(sample_s), RL["fragment"], RL["envs"])
+    return runner
+
+
+def _rl_q(tag, label, make, make_runner, sequences=False,
+          update_kw=lambda device: {}) -> None:
+    """One iteration of a value-based algorithm as its training_step runs
+    it: sample (transitions, or R2D2's sequences), add to a ReplayBuffer,
+    RL_Q["updates"] replayed updates, sync the target, weights back to the
+    runner. The first update is gated; ``update_kw(device)`` gives extra
+    update arguments for the gated update (Noisy DQN's noise)."""
+    from ray_tpu_torch.rllib.replay_buffer import ReplayBuffer
+    learner = make(None)
+    runner = make_runner()
+    runner.set_weights(learner.get_weights())
+    t0 = time.perf_counter()
+    if sequences:
+        steps, size = RL_Q["r2d2_fragment"], RL_Q["r2d2_batch"]
+        batch = runner.sample_sequences(steps, RL_Q["epsilon"])
+    else:
+        steps, size = RL_Q["fragment"], RL_Q["batch"]
+        batch = runner.sample_transitions(steps, RL_Q["epsilon"])
+    sample_s = time.perf_counter() - t0
+    replay = ReplayBuffer(50_000, seed=SEED)
+    replay.add(batch)
+    losses = []
+    for u in range(RL_Q["updates"]):
+        replayed = replay.sample(size)
+        if u == 0:
+            w0 = learner.get_weights()
+
+            def run(ln, replayed=replayed):
+                return ln.update(replayed, **update_kw(ln.device))
+            m = run(learner)
+            ref_m, ref_d, cpu_s = _rl_ref(make, w0, run)
+            if not _rl_gate(tag, f"{label}, first update",
+                            (m, _after(learner, w0, 1)), (ref_m, ref_d),
+                            "loss"):
+                raise AssertionError(f"{tag}: {label} failed the gate")
+        else:
+            m = learner.update(replayed)
+        if not (math.isfinite(m["loss"])
+                and torch.isfinite(torch.as_tensor(m["td_error"])).all()):
+            raise AssertionError(f"{tag} {label}: loss {m['loss']}")
+        losses.append(m["loss"])
+    learner.sync_target()
+    runner.set_weights(learner.get_weights())
+    kind = "sequences" if sequences else "transitions"
+    log(f"[{tag}] {label}: {len(batch)} {kind} replayed in batches of "
+        f"{size}, losses "
+        f"{', '.join(f'{v:.5f}' for v in losses)}, target synced")
+    card_ms = _rl_time_update(make, w0, run)
+    _rl_report(tag, label, card_ms, cpu_s, sample_s, steps,
+               len(runner._envs))
+
+
+def phase_rllib() -> None:
+    """(m) RLlib on the card: runners and learners built with device=None
+    (the card), composed as each algorithm's training_step composes them.
+    (1) PPO, legacy MLP, CartPole-v1; (2) PPO with the catalog CNN on
+    GridGoal 84x84x1 (the catalog's largest default filters), with the
+    control of an NCHW flatten; (3) PPO with use_lstm on StatelessCartPole,
+    with the control of a cell without the forget-gate bias; (4) one
+    iteration each of DQN (dueling off and on), C51, QR-DQN and Noisy DQN
+    on CartPole, and of R2D2 on MemoryCue. Every first update is gated
+    against the port's CPU update of the same batch from the same weights
+    (RL_LOSS_RTOL, RL_MOMENT_RTOL); each control must fail that gate. Then
+    the update times (CUDA events) and the time per env step (host
+    clock), and the host syncs of sampling under torch.profiler."""
+    from ray_tpu_torch.rllib import catalog
+    from ray_tpu_torch.rllib.algorithms import c51, dqn, noisy, qrdqn, r2d2
+    from ray_tpu_torch.rllib.catalog import obs_shape_of
+    from ray_tpu_torch.rllib.env import make_env
+    from ray_tpu_torch.rllib.env_runner import EnvRunner
+    from ray_tpu_torch.rllib.models import seeded
+    # The gates hold the card to the CPU in fp32: no TF32 (as phase a).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("[m] torch.backends.cuda.matmul.allow_tf32 = False, "
+        "cudnn.allow_tf32 = False")
+    mlp = _rl_ppo("m", "mlp CartPole-v1", "CartPole-v1", {}, None, 3)
+    _rl_profile_sampling("m", mlp, "PPO mlp")
+    cnn_model = {"fcnet_hiddens": list(RL["hidden"])}
+    cnn = _rl_ppo("m", "cnn GridGoal 84x84x1", "GridGoal", {"size": 84},
+                  cnn_model, 2,
+                  controls=[("conv map flattened NCHW", catalog,
+                             "_flatten_nhwc", _nchw_flatten)])
+    _rl_profile_sampling("m", cnn, "PPO cnn")
+    lstm_model = {"fcnet_hiddens": list(RL["hidden"]), "use_lstm": True,
+                  "lstm_cell_size": 64}
+    lstm = _rl_ppo("m", "lstm StatelessCartPole", "StatelessCartPole", {},
+                   lstm_model, 2,
+                   controls=[("no forget-gate bias", catalog, "_lstm_cell",
+                              _cell_without_forget_bias)])
+    _rl_profile_sampling("m", lstm, "PPO lstm")
+    hidden, envs = RL["hidden"], RL["envs"]
+    for dueling in (False, True):
+        _rl_q("m", f"DQN dueling={dueling}",
+              lambda device, d=dueling: dqn.DQNLearner(
+                  4, 2, hidden=hidden, lr=RL["lr"], dueling=d, seed=SEED,
+                  device=device),
+              lambda d=dueling: (dqn.DuelingDQNRunner if d else EnvRunner)(
+                  "CartPole-v1", {}, envs, SEED, hidden=hidden))
+    _rl_q("m", "C51", lambda device: c51.C51Learner(
+              4, 2, hidden=hidden, lr=RL["lr"], seed=SEED, device=device),
+          lambda: c51.C51Runner("CartPole-v1", {}, envs, SEED,
+                                hidden=hidden))
+    _rl_q("m", "QR-DQN", lambda device: qrdqn.QRDQNLearner(
+              4, 2, hidden=hidden, lr=RL["lr"], seed=SEED, device=device),
+          lambda: qrdqn.QRDQNRunner("CartPole-v1", {}, envs, SEED,
+                                    hidden=hidden))
+    # The gated update takes one fixed noise draw on both devices.
+    probe = noisy.noisy_net_init(SEED, [4, *hidden, 2], device="cpu")
+    noise = [noisy.noisy_net_noise(probe["q"], seeded(SEED + i))
+             for i in range(3)]
+    _rl_q("m", "Noisy DQN", lambda device: noisy.NoisyDQNLearner(
+              4, 2, hidden=hidden, lr=RL["lr"], seed=SEED, device=device),
+          lambda: noisy.NoisyDQNRunner("CartPole-v1", {}, envs, SEED,
+                                       hidden=hidden),
+          update_kw=lambda device: {"noise": [
+              [tuple(e.to(device) for e in pair) for pair in draw]
+              for draw in noise]})
+    cue = make_env("MemoryCue", {})
+    _rl_q("m", "R2D2 MemoryCue", lambda device: r2d2.R2D2Learner(
+              obs_shape_of(cue), cue.num_actions, hidden=hidden,
+              lstm_cell_size=RL_Q["r2d2_cell"], lr=RL["lr"], seed=SEED,
+              device=device),
+          lambda: r2d2.R2D2Runner("MemoryCue", {}, envs, SEED,
+                                  hidden=hidden,
+                                  lstm_cell_size=RL_Q["r2d2_cell"]),
+          sequences=True)
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # (f) kernel timing
 # ---------------------------------------------------------------------------
 
@@ -1128,6 +1517,7 @@ def main() -> int:
     phase_medium()
     phase_strategies(e_step0)
     phase_pipeline()
+    phase_rllib()
     kernels = [dict(name=n, route="cuda", source=SOURCES[n],
                     replaces=REPLACES[n],
                     launches=launches[n], max_abs_err=errs[n],

@@ -15,6 +15,14 @@ from ray_tpu_torch.ops import _build
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+# The RLlib slice: four numpy copies, then the ports of JAX code.
+RLLIB_MODULES = ["ray_tpu_torch.rllib." + m for m in (
+    "sample_batch", "env", "connectors", "replay_buffer", "models",
+    "catalog", "convert", "learner", "algorithms.a2c", "algorithms.pg",
+    "env_runner", "algorithms.dqn", "algorithms.c51", "algorithms.qrdqn",
+    "algorithms.noisy", "algorithms.r2d2")]
+
+
 def _all_modules():
     return ["ray_tpu_torch"] + sorted(
         m.name for m in pkgutil.walk_packages(ray_tpu_torch.__path__,
@@ -27,6 +35,7 @@ def test_package_imports_no_jax_and_no_ray_tpu():
     assert "ray_tpu_torch.train.train_step" in mods
     assert "ray_tpu_torch.parallel.mesh" in mods
     assert "ray_tpu_torch.parallel.sharding" in mods
+    assert set(RLLIB_MODULES) <= set(mods), set(RLLIB_MODULES) - set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -48,6 +57,37 @@ def test_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         gpt_init(GPTConfig.tiny())
     assert ray_tpu_torch.resolve_device("cpu").type == "cpu"
+
+
+def test_rllib_default_device_raises_without_cuda(monkeypatch):
+    """Learners and runners built with device=None go to the card, and
+    raise without one, as gpt_init does."""
+    from ray_tpu_torch.rllib.algorithms.c51 import C51Learner
+    from ray_tpu_torch.rllib.algorithms.dqn import DQNLearner
+    from ray_tpu_torch.rllib.algorithms.noisy import NoisyDQNLearner
+    from ray_tpu_torch.rllib.algorithms.qrdqn import QRDQNLearner
+    from ray_tpu_torch.rllib.algorithms.r2d2 import (R2D2Learner,
+                                                     R2D2Runner)
+    from ray_tpu_torch.rllib.env_runner import (EnvRunner,
+                                                MultiAgentEnvRunner)
+    from ray_tpu_torch.rllib.learner import PPOLearner
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    builds = [
+        lambda: PPOLearner(4, 2),
+        lambda: DQNLearner(4, 2),
+        lambda: C51Learner(4, 2),
+        lambda: QRDQNLearner(4, 2),
+        lambda: NoisyDQNLearner(4, 2),
+        lambda: R2D2Learner((4,), 2),
+        lambda: EnvRunner("CartPole-v1", {}, 1, 0),
+        lambda: R2D2Runner("MemoryCue", {}, 1, 0),
+        lambda: MultiAgentEnvRunner("MultiCartPole", {}, ["p"],
+                                    lambda a: "p"),
+    ]
+    for build in builds:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+    assert PPOLearner(4, 2, device="cpu").device.type == "cpu"
 
 
 def test_kernels_import_and_cpu_path_need_no_nvcc(monkeypatch):

@@ -61,6 +61,22 @@ Phases, each of which raises on failure:
       each control must fail the gate. Update times (CUDA events), time
       per env step, and sampling's copies, syncs and idle card under
       torch.profiler. No kernel of K1-K3 runs here;
+  (n) RLlib's continuous, offline and podracer compute on the card, at the
+      JAX algorithms' widths (RL_OFF), cut to 5 iterations: SAC, SAC with
+      PER, TD3 and DDPG on Pendulum-v1 (2 ContinuousEnvRunners x 1 env,
+      fragment 64, 500 warm-up steps, batch 256, one update per sampled
+      step: 2048 updates in all), composed as their training_step composes
+      them; CQL (4 OOD actions) on the SAC run's transitions written by
+      offline.JsonWriter and read back by JsonReader; BC and MARWIL on
+      CartPole fragments of EnvRunner written and read the same way, 200
+      updates each, and a greedy evaluate; five podracer ticks of two
+      _RolloutWorkers and a _Learner. Each first update gated against the
+      port's CPU update of the same batch from the same weights with the
+      same draws (Adam's moment part by part); controls that must fail: SAC's
+      actor loss on the critic before its step, TD3's actor stepped every
+      update, CQL's logsumexp over the batch axis, MARWIL's weights on the
+      old adv_norm. Update times, time per env step, and the continuous
+      runner's sampling under torch.profiler;
   (g) one line {"kernels": [...]} (launches from the main path, e);
   (h) last line {"ok": true, "device": {...}}.
 
@@ -70,6 +86,7 @@ Exits non-zero, printing no result, without CUDA or without the package.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -1074,8 +1091,12 @@ def _cell_without_forget_bias(lstm, x, h, c):
 def _after(learner, w0, steps) -> dict:
     """What a gate reads of an update: theta - theta_0 and Adam's first
     moment per parameter (fp64, host; zeros where no gradient came), and
-    the number of Adam steps."""
-    state = learner.optimizer.state
+    the number of Adam steps. A learner with one Adam per part (the SAC
+    family's ``optimizers``) reads each part's from its own."""
+    state = {}
+    for opt in (getattr(learner, "optimizers", {}).values()
+                or [learner.optimizer]):
+        state.update(opt.state)
     weights = learner.get_weights()
     delta, moment = {}, {}
     for k, p in learner.module.named_parameters():
@@ -1109,14 +1130,37 @@ def _rel_l2(a: dict, b: dict) -> float:
     return num / max(den, 1e-30)
 
 
-def _rl_gate(tag, label, card, ref, loss_key) -> bool:
+def _rel_l2_parts(a: dict, b: dict) -> float:
+    """The largest _rel_l2 over the parts a state's names start with
+    (actor, critic, log_alpha; pi, vf), so that one network's moment is
+    not hidden in another's norm: a part all zero on both sides is left
+    out, one zero in ``b`` alone reads inf."""
+    parts = {}
+    for k in b:
+        parts.setdefault(k.split(".")[0], []).append(k)
+    rels = []
+    for ks in parts.values():
+        num = max(float(a[k].abs().max()) for k in ks)
+        den = max(float(b[k].abs().max()) for k in ks)
+        if den:
+            rels.append(_rel_l2({k: a[k] for k in ks}, {k: b[k] for k in ks}))
+        elif num:
+            rels.append(math.inf)
+    return max(rels, default=0.0)
+
+
+def _rl_gate(tag, label, card, ref, loss_key, lr=None,
+             parts=False) -> bool:
+    """``lr``: the largest learning rate of the learner (RL's by default);
+    ``parts``: hold Adam's first moment part by part (_rel_l2_parts)."""
     (mc, ac), (mr, ar) = card, ref
     lc, lr_ = float(mc[loss_key]), float(mr[loss_key])
     loss_rel = abs(lc - lr_) / max(abs(lr_), 1e-30)
-    moment_rel = _rel_l2(ac["moment"], ar["moment"])
+    moment_rel = (_rel_l2_parts if parts else _rel_l2)(ac["moment"],
+                                                       ar["moment"])
     max_abs = max(float((ac["delta"][k] - ar["delta"][k]).abs().max())
                   for k in ar["delta"])
-    reach = 2 * RL["lr"] * ar["steps"]
+    reach = 2 * (lr or RL["lr"]) * ar["steps"]
     ok = (math.isfinite(lc) and loss_rel <= RL_LOSS_RTOL
           and moment_rel <= RL_MOMENT_RTOL and max_abs <= reach)
     log(f"[{tag}] gate {label}: {loss_key} {lc:.6g} against the CPU's "
@@ -1166,18 +1210,22 @@ def _rl_report(tag, label, card_ms, cpu_s, sample_s, steps, envs) -> None:
         f"clock, {steps} steps)")
 
 
-def _rl_profile_sampling(tag, runner, label) -> None:
-    """RL_PROFILED_STEPS vectorized steps of ``runner.sample`` under
-    torch.profiler: device-to-host and host-to-device copies, kernels and
-    device time per step, against the host clock."""
+def _rl_profile_sampling(tag, runner, label, sample=None,
+                         closing=1) -> None:
+    """RL_PROFILED_STEPS vectorized steps of ``runner.sample`` (or of
+    ``sample(steps)``) under torch.profiler: device-to-host and
+    host-to-device copies, kernels and device time per step, against the
+    host clock. ``closing``: forwards after the last step (the fragment's
+    bootstrap)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    runner.sample(2)
+    sample = sample or runner.sample
+    sample(2)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        runner.sample(RL_PROFILED_STEPS)
+        sample(RL_PROFILED_STEPS)
         torch.cuda.synchronize()
         host_ms = 1e3 * (time.perf_counter() - t0)
     d2h = h2d = kernels = copies = syncs = 0
@@ -1195,9 +1243,10 @@ def _rl_profile_sampling(tag, runner, label) -> None:
             copies += e.count
         elif e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
             syncs += e.count
-    n = RL_PROFILED_STEPS + 1     # the fragment's closing forward
+    n = RL_PROFILED_STEPS + closing
     log(f"[{tag}] {label} sampling under torch.profiler, {RL_PROFILED_STEPS} "
-        f"vectorized steps (+1 closing forward), per step: {d2h / n:.2f} "
+        f"vectorized steps (+{closing} closing forward), per step: "
+        f"{d2h / n:.2f} "
         f"device-to-host and {h2d / n:.2f} host-to-device copies "
         f"({copies / n:.2f} cudaMemcpy(Async) calls, {syncs / n:.2f} "
         f"stream syncs), {kernels / n:.1f} kernels, device "
@@ -1391,6 +1440,341 @@ def phase_rllib() -> None:
 
 
 # ---------------------------------------------------------------------------
+# (n) RLlib's continuous, offline and podracer compute
+# ---------------------------------------------------------------------------
+
+# The widths and settings the JAX algorithms configure, cut only in
+# iterations: AlgorithmConfig's hidden (64, 64), 2 runners x 1 env, lr 5e-4
+# (ray_tpu/rllib/algorithm.py:21-32); SACConfig / TD3Config on
+# Pendulum-v1: fragment 64, train batch 256, 500 warm-up steps, one update
+# per sampled step, a 100,000-step buffer, PER alpha 0.6 / beta 0.4
+# (sac.py:27-44, td3.py:29-40); CQLConfig's 4 OOD actions (cql.py:29-40);
+# BC and MARWIL batch 256 (bc.py:23-26, marwil.py:28-34); PodracerConfig's
+# 2 gangs x 1 actor x 1 env, fragment 16, hidden (32, 32), minibatch 64
+# (ray_tpu/podracer/topology.py:31-56). Five iterations: the buffer passes
+# the batch at the second and the warm-up at the fifth, so four update
+# (512 updates) and two sample with the policy.
+RL_OFF = dict(hidden=(64, 64), runners=2, envs=1, fragment=64, batch=256,
+              warmup=500, capacity=100_000, per_alpha=0.6, per_beta=0.4,
+              iterations=5, ood=4, offline_updates=200, offline_lr=5e-4,
+              cartpole_fragments=3, podracer_ticks=5)
+PENDULUM = dict(obs=3, act=1, low=-2.0, high=2.0)
+
+
+def _rl_first_update(tag, label, learner, make, batch, loss_key, lr,
+                     controls=(), noisy=False):
+    """The gated first update of a learner of phase (n): the card's against
+    a fresh CPU learner's from the same weights on the same batch, with the
+    same draws (``noisy``: a CPU learner's own ``draw_noise``, injected on
+    both). Each control (label, make or None, (module, name, value) or
+    None) must fail the gate. -> (metrics, w0, run, CPU seconds)."""
+    w0 = learner.get_weights()
+    kw = {}
+    if noisy:
+        kw["noise"] = {k: v.numpy()
+                       for k, v in make("cpu").draw_noise(len(batch)).items()}
+
+    def run(ln):
+        return ln.update(batch, **kw)
+    metrics = run(learner)
+    ref_m, ref_d, cpu_s = _rl_ref(make, w0, run)
+    ref = (ref_m, ref_d)
+    if not _rl_gate(tag, f"{label}, first update",
+                    (metrics, _after(learner, w0, 1)), ref, loss_key, lr=lr,
+                    parts=True):
+        raise AssertionError(f"{tag}: {label} failed the gate")
+    for c_label, c_make, patch in controls:
+        with (_patched(*patch) if patch else contextlib.nullcontext()):
+            card = _rl_ref(c_make or make, w0, run, device=None)[:2]
+        if _rl_gate(tag, f"control, {c_label} (must fail)", card, ref,
+                    loss_key, lr=lr, parts=True):
+            raise AssertionError(f"{tag}: the control '{c_label}' passed "
+                                 "the gate")
+    return metrics, w0, run, cpu_s
+
+
+def _finite(tag, label, metrics) -> None:
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"{tag} {label}: metrics {metrics}")
+
+
+def _rl_continuous(tag, label, make, lr, policy, per=False, controls=(),
+                   writer=None):
+    """One off-policy algorithm as SAC.training_step / TD3.training_step
+    compose it: every runner samples a fragment (uniform actions until the
+    warm-up), the batch goes to the replay buffer (and to ``writer``), one
+    update per sampled step once the buffer holds a train batch (PER: its
+    weights in, |TD| + 1e-6 back as priorities), the actor's weights to
+    the runners. -> a runner."""
+    from ray_tpu_torch.rllib.env_runner import ContinuousEnvRunner
+    from ray_tpu_torch.rllib.replay_buffer import (PrioritizedReplayBuffer,
+                                                   ReplayBuffer)
+    from ray_tpu_torch.rllib.sample_batch import concat_samples
+    o = RL_OFF
+    learner = make(None)
+    runners = [ContinuousEnvRunner("Pendulum-v1", {}, o["envs"],
+                                   SEED + 1000 * i, hidden=o["hidden"],
+                                   policy=policy)
+               for i in range(o["runners"])]
+    for r in runners:
+        r.set_weights(learner.get_actor_weights())
+    buffer = (PrioritizedReplayBuffer(o["capacity"], alpha=o["per_alpha"],
+                                      seed=SEED) if per else
+              ReplayBuffer(o["capacity"], seed=SEED))
+    sampled = updates = 0
+    policy_s = []
+    for it in range(o["iterations"]):
+        t0 = time.perf_counter()
+        batch = concat_samples([r.sample_transitions(
+            o["fragment"], o["warmup"], sampled) for r in runners])
+        if sampled >= o["warmup"]:
+            policy_s.append(time.perf_counter() - t0)
+        if writer is not None:
+            writer.write(batch)
+        buffer.add(batch)
+        sampled += len(batch)
+        metrics = {}
+        if len(buffer) >= o["batch"]:
+            for _ in range(len(batch)):
+                sample = (buffer.sample(o["batch"], beta=o["per_beta"])
+                          if per else buffer.sample(o["batch"]))
+                if updates == 0:
+                    metrics, w0, run, cpu_s = _rl_first_update(
+                        tag, label, learner, make, sample, "critic_loss",
+                        lr, controls, noisy=True)
+                else:
+                    metrics = learner.update(sample)
+                if per:
+                    buffer.update_priorities(sample["batch_indexes"],
+                                             learner.last_td_error + 1e-6)
+                updates += 1
+            _finite(tag, label, metrics)
+        for r in runners:
+            r.set_weights(learner.get_actor_weights())
+        log(f"[{tag}] {label} iteration {it}: {len(batch)} transitions "
+            f"({sampled} sampled), buffer {len(buffer)}, {updates} updates"
+            + "".join(f", {k} {v:.5f}" for k, v in metrics.items()))
+    rewards = [x for r in runners for x in r.episode_rewards()]
+    log(f"[{tag}] {label}: {len(rewards)} episodes ended, mean return "
+        f"{statistics.mean(rewards):.2f}")
+    if updates < 2 * len(batch):
+        raise AssertionError(f"{tag} {label}: {updates} updates")
+    _rl_report(tag, label, _rl_time_update(make, w0, run), cpu_s,
+               statistics.median(policy_s), o["runners"] * o["fragment"],
+               o["envs"])
+    return runners[0], updates
+
+
+def _rl_offline(tag, label, make, lr, next_batch, loss_key, controls=(),
+                noisy=False):
+    """RL_OFF["offline_updates"] updates of an offline learner, each on
+    ``next_batch(learner)`` as the algorithm's training_step draws it; the
+    first gated. -> the learner."""
+    learner = make(None)
+    for u in range(RL_OFF["offline_updates"]):
+        batch = next_batch(learner)
+        if u == 0:
+            metrics, w0, run, cpu_s = _rl_first_update(
+                tag, label, learner, make, batch, loss_key, lr, controls,
+                noisy=noisy)
+            first = metrics
+        else:
+            metrics = learner.update(batch)
+    _finite(tag, label, metrics)
+    log(f"[{tag}] {label}: {RL_OFF['offline_updates']} updates of "
+        f"{len(batch)} rows, {loss_key} {first[loss_key]:.5f} -> "
+        f"{metrics[loss_key]:.5f}")
+    card_ms = _rl_time_update(make, w0, run)
+    log(f"[{tag}] {label}: update {card_ms:.2f} ms on the card (CUDA "
+        f"events, median of {RL_TIMED}), {1e3 * cpu_s:.2f} ms on the CPU "
+        "(host clock, one update)")
+    return learner
+
+
+def _sac_actor_on_old_critic():
+    """Control: SAC's actor loss taken on the critic from before its step."""
+    from ray_tpu_torch.rllib.algorithms import sac
+
+    class Control(sac.SACLearner):
+        def _critic_loss(self, c, noise):
+            self._before = copy.deepcopy(self.module.critic)
+            return super()._critic_loss(c, noise)
+
+        def _actor_step(self, c, eps, critic):
+            return super()._actor_step(c, eps, self._before)
+    return Control
+
+
+def _marwil_old_norm():
+    """Control: MARWIL's weights on the adv_norm from before this step."""
+    from ray_tpu_torch.rllib import sample_batch as sb
+    from ray_tpu_torch.rllib.algorithms import marwil
+    from ray_tpu_torch.rllib.models import policy_value_apply
+
+    class Control(marwil.MARWILLearner):
+        def _loss(self, c):
+            logits, values = policy_value_apply(self.module, c[sb.OBS])
+            adv = c[marwil.RETURNS] - values
+            new_norm = self.adv_norm + self._rate * (
+                (adv ** 2).mean().detach() - self.adv_norm)
+            w = torch.exp(self._beta * (adv / torch.sqrt(
+                self.adv_norm + 1e-8)).detach()).clamp(max=20.0)
+            p_loss = -(w * marwil.taken_logp(logits, c[sb.ACTIONS])).mean()
+            v_loss = (adv ** 2).mean()
+            return p_loss + self._vf_coeff * v_loss, new_norm, p_loss, v_loss
+    return Control
+
+
+def _rl_podracer(tag) -> None:
+    """PodracerConfig's members on the card, composed collect -> learn ->
+    broadcast for RL_OFF["podracer_ticks"] ticks: versions monotonic,
+    applied == tick + 1, the weight tree's bytes and fold time."""
+    from ray_tpu_torch.models.convert import flatten
+    from ray_tpu_torch.podracer.runtime import (_Learner, _RolloutWorker,
+                                                _to_numpy_tree)
+    hidden = (32, 32)
+    workers = [_RolloutWorker("CartPole-v1", {}, 1, 16, SEED + 1000 * (i + 1),
+                              hidden=hidden) for i in range(2)]
+    learner = _Learner(4, 2, lr=5e-4, hidden=hidden, minibatch_size=64,
+                       num_epochs=1, seed=SEED)
+    version, weights = learner.control()
+    seen = [[] for _ in workers]
+    for tick in range(RL_OFF["podracer_ticks"]):
+        batches = [w.collect((tick, version, weights)) for w in workers]
+        out = learner.learn(*batches)
+        for i, b in enumerate(batches):
+            seen[i].append(b["version"])
+        if out["applied"] != tick + 1 or out["tick_skew"]:
+            raise AssertionError(f"{tag} podracer tick {tick}: {out}")
+        _finite(tag, "podracer", out["metrics"])
+        if out["weights"] is not None:
+            version, weights = out["version"], out["weights"]
+    if any(b < a for s in seen for a, b in zip(s, s[1:])) or version != (
+            RL_OFF["podracer_ticks"] + 1):
+        raise AssertionError(f"{tag} podracer versions {seen}, {version}")
+    state = learner._learner.module.state_dict()
+    nbytes = sum(v.nbytes for v in flatten(_to_numpy_tree(state)).values())
+    times = []
+    for _ in range(RL_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _to_numpy_tree(state)
+        times.append(1e3 * (time.perf_counter() - t0))
+    log(f"[{tag}] podracer: {RL_OFF['podracer_ticks']} ticks of 2 members "
+        f"-> learner on the card, versions seen {seen}, final version "
+        f"{version}, applied == tick + 1; weight tree {nbytes} bytes, "
+        f"folded to numpy in {statistics.median(times):.3f} ms (host clock, "
+        f"median of {RL_TIMED})")
+
+
+def phase_offpolicy() -> None:
+    """(n) RLlib's continuous, offline and podracer compute on the card:
+    SAC, SAC with PER, TD3 and DDPG on Pendulum-v1 through
+    ContinuousEnvRunner, a replay buffer and their learners, composed as
+    their training_step composes them; CQL on the SAC run's transitions
+    written by offline.JsonWriter and read back by JsonReader; BC and
+    MARWIL on CartPole fragments of EnvRunner, written and read the same
+    way; five podracer ticks. Each first update gated against the CPU's
+    (TF32 off), each control failing it; update times, time per env step
+    of ContinuousEnvRunner, and its sampling under torch.profiler."""
+    import tempfile
+
+    import numpy as np
+    t_start = time.perf_counter()
+    from ray_tpu_torch.rllib import sample_batch as sb
+    from ray_tpu_torch.rllib.algorithms import bc, cql, marwil, sac, td3
+    from ray_tpu_torch.rllib.env_runner import EnvRunner
+    from ray_tpu_torch.rllib.offline import JsonReader, JsonWriter
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("[n] torch.backends.cuda.matmul.allow_tf32 = False, "
+        "cudnn.allow_tf32 = False")
+    o, p = RL_OFF, PENDULUM
+    dims = (p["obs"], p["act"], p["low"], p["high"])
+
+    def sac_make(cls=sac.SACLearner, **kw):
+        return lambda device: cls(*dims, hidden=o["hidden"], seed=SEED,
+                                  device=device, **kw)
+
+    def td3_make(**kw):
+        return lambda device: td3.TD3Learner(*dims, hidden=o["hidden"],
+                                             seed=SEED, device=device, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        writer = JsonWriter(os.path.join(tmp, "pendulum"))
+        runner, total = _rl_continuous(
+            "n", "SAC Pendulum-v1", sac_make(), 3e-4, "squashed_gaussian",
+            writer=writer,
+            controls=[("actor loss on the critic before its step",
+                       sac_make(_sac_actor_on_old_critic()), None)])
+        writer.close()
+        _rl_profile_sampling(
+            "n", runner, "ContinuousEnvRunner (SAC)", closing=0,
+            sample=lambda n: runner.sample_transitions(n))
+        total += _rl_continuous("n", "SAC+PER Pendulum-v1", sac_make(),
+                                3e-4, "squashed_gaussian", per=True)[1]
+        total += _rl_continuous(
+            "n", "TD3 Pendulum-v1", td3_make(), 1e-3, "deterministic",
+            controls=[("actor stepped every update",
+                       td3_make(policy_delay=1), None)])[1]
+        total += _rl_continuous("n", "DDPG Pendulum-v1",
+                                td3_make(**td3.DDPG_DEFAULTS), 1e-3,
+                                "deterministic")[1]
+        log(f"[n] off-policy: {total} gradient steps in all")
+
+        data = JsonReader(os.path.join(tmp, "pendulum"), seed=SEED).read_all()
+        rows = np.random.RandomState(SEED)
+
+        def cql_batch(_learner):
+            idx = rows.randint(0, len(data), size=min(o["batch"], len(data)))
+            return sb.SampleBatch({k: v[idx] for k, v in data.items()})
+        _rl_offline(
+            "n", f"CQL on {len(data)} Pendulum transitions (JsonReader)",
+            sac_make(cql.CQLLearner, num_ood_actions=o["ood"]), 3e-4,
+            cql_batch, "critic_loss", noisy=True,
+            controls=[("logsumexp over the batch axis", None,
+                       (cql, "_sample_lse", lambda q: torch.logsumexp(
+                           q, dim=1, keepdim=True)))])
+
+        writer = JsonWriter(os.path.join(tmp, "cartpole"))
+        for i in range(o["runners"]):
+            r = EnvRunner("CartPole-v1", {}, o["envs"], SEED + 1000 * i,
+                          hidden=o["hidden"])
+            for _ in range(o["cartpole_fragments"]):
+                writer.write(r.sample(RL["fragment"]))
+        writer.close()
+        path = os.path.join(tmp, "cartpole")
+        data = JsonReader(path, seed=SEED).read_all()
+        frags = []
+        for frag in JsonReader(path, seed=SEED).iter_batches():
+            frag[marwil.RETURNS] = marwil._returns_to_go(frag, 0.99)
+            frags.append(frag)
+        returns = sb.concat_samples(frags)
+
+    def offline_make(cls, **kw):
+        return lambda device: cls(4, 2, hidden=o["hidden"],
+                                  lr=o["offline_lr"], seed=SEED,
+                                  device=device, **kw)
+    bc_learner = _rl_offline(
+        "n", f"BC on {len(data)} CartPole steps (JsonReader)",
+        offline_make(bc.BCLearner), o["offline_lr"],
+        lambda ln: ln.sample(data, o["batch"]), "loss")
+    marwil_learner = _rl_offline(
+        "n", f"MARWIL on {len(returns)} CartPole steps",
+        offline_make(marwil.MARWILLearner), o["offline_lr"],
+        lambda ln: ln.sample(returns, o["batch"]), "loss",
+        controls=[("weights on the old adv_norm",
+                   offline_make(_marwil_old_norm()), None)])
+    for name, ln in (("BC", bc_learner), ("MARWIL", marwil_learner)):
+        out = bc.evaluate(ln.module, "CartPole-v1", {}, SEED, num_episodes=1)
+        log(f"[n] {name} evaluate: greedy return "
+            f"{out['evaluation_reward_mean']:.1f} (1 episode)")
+    _rl_podracer("n")
+    torch.cuda.empty_cache()
+    log(f"[n] phase (n) took {time.perf_counter() - t_start:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # (f) kernel timing
 # ---------------------------------------------------------------------------
 
@@ -1518,6 +1902,7 @@ def main() -> int:
     phase_strategies(e_step0)
     phase_pipeline()
     phase_rllib()
+    phase_offpolicy()
     kernels = [dict(name=n, route="cuda", source=SOURCES[n],
                     replaces=REPLACES[n],
                     launches=launches[n], max_abs_err=errs[n],

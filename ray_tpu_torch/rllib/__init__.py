@@ -8,5 +8,5 @@ against ``ray_tpu/rllib/catalog.py``) and is held against it by
 ``training_step``) holds no JAX and is not ported: the learners and runners
 here are plain classes that a caller composes as ``training_step`` does.
 The pure-numpy modules the compute needs (``sample_batch``, ``env``,
-``connectors``, ``replay_buffer``) are the port's own copies.
+``connectors``, ``replay_buffer``, ``offline``) are the port's own copies.
 """

@@ -9,6 +9,9 @@ actions. The policy forward runs on the runner's device (None -> the card)
 without autograd, and its outputs are read back to the host once per
 vectorized env step, as the reference reads its logits. Weights arrive as
 a state dict from a learner on any device (``set_weights``).
+``ContinuousEnvRunner`` draws its Gaussian noise on the device from a
+``torch.Generator`` (JAX draws it from its key), and takes JAX's draws
+when they are passed in.
 """
 
 from __future__ import annotations
@@ -24,11 +27,15 @@ from ray_tpu_torch.rllib import sample_batch as sb
 from ray_tpu_torch.rllib.catalog import (ModelConfig, catalog_apply,
                                          catalog_apply_step, catalog_init,
                                          obs_shape_of)
-from ray_tpu_torch.rllib.connectors import default_obs_pipeline
+from ray_tpu_torch.rllib.connectors import (default_action_pipeline,
+                                            default_obs_pipeline)
 from ray_tpu_torch.rllib.convert import ravel, unravel
 from ray_tpu_torch.rllib.env import make_env
-from ray_tpu_torch.rllib.models import (policy_value_apply,
-                                        policy_value_init, seeded)
+from ray_tpu_torch.rllib.models import (det_actor_apply, det_actor_init,
+                                        policy_value_apply,
+                                        policy_value_init, seeded,
+                                        squashed_gaussian_init,
+                                        squashed_gaussian_sample)
 from ray_tpu_torch.rllib.sample_batch import (MultiAgentBatch, SampleBatch,
                                               compute_gae)
 
@@ -334,6 +341,108 @@ class EnvRunner(_RewardTracker):
 
     def get_flat_params(self) -> np.ndarray:
         return ravel(self.module)
+
+
+class ContinuousEnvRunner(_RewardTracker):
+    """Rollout actor for continuous control (SAC family): actions sampled
+    from the tanh-squashed Gaussian actor, or (``policy="deterministic"``,
+    DDPG/TD3) mu(s) plus Gaussian noise of expl_noise times the half-range,
+    clipped; emits transition batches (reference: rollout_worker.py with
+    StochasticSampling / GaussianNoise exploration).
+
+    The forward runs on the runner's device, its standard-normal draw from
+    a device ``torch.Generator`` seeded ``seed`` (JAX splits its key once
+    per policy step, the port draws once per policy step), and the actions
+    are read back once per vectorized step. The warm-up's uniform actions
+    come from numpy, as in JAX."""
+
+    def __init__(self, env_spec, env_config: dict, num_envs: int,
+                 seed: int, hidden=(64, 64), policy: str = "squashed_gaussian",
+                 expl_noise: float = 0.1, obs_connectors=None,
+                 action_connectors=None, device=None):
+        self.device = resolve_device(device)
+        self._envs = [make_env(env_spec, env_config) for _ in range(num_envs)]
+        e0 = self._envs[0]
+        assert e0.continuous, "ContinuousEnvRunner needs a continuous env"
+        low, high = self._low, self._high = e0.action_low, e0.action_high
+        self._obs_conn = default_obs_pipeline(obs_connectors)
+        self._act_conn = default_action_pipeline(low, high,
+                                                 action_connectors)
+        self._seed = seed
+        self._obs = []
+        self._ep_rewards = [0.0] * num_envs
+        self._done_rewards: List[float] = []
+        for i, e in enumerate(self._envs):
+            obs, _ = e.reset(seed=seed + i)
+            self._obs.append(obs)
+        self._noise = seeded(seed, self.device)
+        gen = seeded(seed)
+        if policy == "deterministic":
+            self.module = det_actor_init(e0.observation_dim, e0.action_dim,
+                                         tuple(hidden), generator=gen,
+                                         device=self.device)
+            sigma = expl_noise * (high - low) / 2.0
+
+            def sample(p, obs, eps):
+                a = det_actor_apply(p, obs, low, high) + sigma * eps
+                return a.clamp(low, high)
+        else:
+            self.module = squashed_gaussian_init(
+                e0.observation_dim, e0.action_dim, tuple(hidden),
+                generator=gen, device=self.device)
+
+            def sample(p, obs, eps):
+                return squashed_gaussian_sample(None, p, obs, low, high,
+                                                eps=eps)[0]
+        self._sample = sample
+
+    def set_weights(self, weights):
+        self.module.load_state_dict(weights)
+
+    def sample_transitions(self, num_steps: int, random_until: int = 0,
+                           steps_done: int = 0, noise=None) -> SampleBatch:
+        """(obs, action, reward, next_obs, done) transitions. The first
+        `random_until` total env steps act uniformly at random (SAC warmup
+        exploration; reference: sac.py num_steps_sampled_before_learning).
+        The warmup RNG mixes the runner seed so parallel runners explore
+        independently. ``noise``: the policy steps' standard-normal draws,
+        [policy steps, num_envs, action_dim], taken in order in place of
+        the runner's generator (JAX's draws, in the parity tests)."""
+        cols = {k: [] for k in (sb.OBS, sb.ACTIONS, sb.REWARDS,
+                                sb.NEXT_OBS, sb.TERMINATEDS)}
+        rng = np.random.RandomState(
+            (self._seed * 9973 + steps_done + 1) % (2 ** 31))
+        shape = (len(self._envs), self._envs[0].action_dim)
+        drawn = 0
+        for t in range(num_steps):
+            obs_arr = self._obs_conn(np.stack(self._obs))
+            if steps_done + t < random_until:
+                acts = rng.uniform(self._low, self._high, size=shape)
+            else:
+                if noise is None:
+                    eps = torch.randn(shape, generator=self._noise,
+                                      device=self.device)
+                else:
+                    eps = np.array(noise[drawn], np.float32)
+                drawn += 1
+                acts = run_policy(self._sample, self.module, self.device,
+                                  obs_arr, eps)
+            acts = self._act_conn(acts)
+            for i, env in enumerate(self._envs):
+                obs2, r, term, trunc, _ = env.step(acts[i])
+                cols[sb.OBS].append(obs_arr[i])
+                cols[sb.ACTIONS].append(acts[i])
+                cols[sb.REWARDS].append(r)
+                cols[sb.NEXT_OBS].append(
+                    self._obs_conn(obs2[None, :], update=False)[0])
+                cols[sb.TERMINATEDS].append(term)
+                self._ep_rewards[i] += r
+                if term or trunc:
+                    self._done_rewards.append(self._ep_rewards[i])
+                    self._ep_rewards[i] = 0.0
+                    obs2, _ = env.reset()
+                self._obs[i] = obs2
+        return SampleBatch({k: np.asarray(v) for k, v in cols.items()})
 
 
 class MultiAgentEnvRunner(_RewardTracker):

@@ -120,6 +120,19 @@ def squashed_gaussian_apply(params, obs):
     return mean, log_std.clamp(-20.0, 2.0)
 
 
+def tanh_slope(x):
+    """1 - tanh(x)^2, as sech(x)^2 = 4 e^{-2|x|} / (1 + e^{-2|x|})^2.
+
+    JAX writes ``1 - tanh(x) ** 2``, which cancels in fp32: past |x| of
+    about 4 the difference is below tanh's rounding, so its ``log(. +
+    1e-6)`` carries an error up to 0.4, and a last-bit difference between
+    two tanh implementations (XLA's and torch's, or the card's and the
+    CPU's) moves it by as much (ROADMAP queue 3, R-5). This form has no
+    cancellation: it is the same function, accurate to a few ulps."""
+    z = torch.exp(-2.0 * x.abs())
+    return 4.0 * z / (1.0 + z) ** 2
+
+
 def squashed_gaussian_sample(generator, params, obs, low: float,
                              high: float, eps=None):
     """Reparameterized sample -> (action in [low, high], log_prob). The
@@ -133,7 +146,7 @@ def squashed_gaussian_sample(generator, params, obs, low: float,
     tanh = torch.tanh(pre)
     # log N(pre) - log |d tanh/d pre|, summed over action dims.
     logp = (-0.5 * (eps ** 2 + 2 * log_std + math.log(2 * math.pi))
-            - torch.log(1 - tanh ** 2 + 1e-6)).sum(-1)
+            - torch.log(tanh_slope(pre) + 1e-6)).sum(-1)
     scale = (high - low) / 2.0
     mid = (high + low) / 2.0
     return mid + scale * tanh, logp

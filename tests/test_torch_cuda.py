@@ -309,3 +309,52 @@ def _restore_whole_on_one_card(runs) -> list:
           f"on one card: {len(gathered.files)} parameters, differing from "
           f"the gathered ones: {differ or 'none'}")
     return [f"tp_fsdp restore differs: {differ}"] if differ else []
+
+
+def _rl_case(name):
+    """A learner of RLlib's continuous and offline slice at the JAX
+    algorithms' widths, and a batch from a seed: (make(device), batch,
+    loss key, largest lr, whether the update takes injected draws)."""
+    from ray_tpu_torch.rllib import sample_batch as sb
+    from ray_tpu_torch.rllib.algorithms import bc, cql, marwil, sac, td3
+    rng = np.random.default_rng(0)
+    n = chip_smoke.RL_OFF["batch"]
+    hidden = chip_smoke.RL_OFF["hidden"]
+    if name in ("bc", "marwil"):
+        batch = sb.SampleBatch({
+            "obs": rng.standard_normal((n, 4)).astype(np.float32),
+            "actions": rng.integers(0, 2, n),
+            "returns": rng.uniform(0, 40, n).astype(np.float32)})
+        cls = bc.BCLearner if name == "bc" else marwil.MARWILLearner
+        return (lambda device: cls(4, 2, hidden=hidden, lr=5e-4, seed=0,
+                                   device=device), batch, "loss", 5e-4,
+                False)
+    batch = {"obs": rng.standard_normal((n, 3)).astype(np.float32),
+             "actions": rng.uniform(-2, 2, (n, 1)).astype(np.float32),
+             "rewards": rng.standard_normal(n) * 3,
+             "next_obs": rng.standard_normal((n, 3)).astype(np.float32),
+             "terminateds": rng.random(n) < 0.05}
+    if name == "sac_per":
+        batch["weights"] = rng.uniform(0.2, 1.0, n).astype(np.float32)
+    kw = {"sac": {}, "sac_per": {}, "cql": {"num_ood_actions": 4},
+          "td3": {}, "ddpg": dict(td3.DDPG_DEFAULTS)}[name]
+    cls = {"sac": sac.SACLearner, "sac_per": sac.SACLearner,
+           "cql": cql.CQLLearner}.get(name, td3.TD3Learner)
+    lr = 1e-3 if cls is td3.TD3Learner else 3e-4
+    return (lambda device: cls(3, 1, -2.0, 2.0, hidden=hidden, seed=0,
+                               device=device, **kw),
+            sb.SampleBatch(batch), "critic_loss", lr, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sac", "sac_per", "td3", "ddpg", "cql",
+                                  "bc", "marwil"])
+def test_rl_learner_first_update_matches_cpu(card, name):
+    """Each learner of RLlib's second slice: the card's first update
+    against the CPU's from the same weights on the same batch with the
+    same draws, by chip_smoke's phase-(n) gate (TF32 off)."""
+    make, batch, loss_key, lr, noisy = _rl_case(name)
+    metrics = chip_smoke._rl_first_update(
+        "cuda", name, make(None), make, batch, loss_key, lr,
+        noisy=noisy)[0]
+    assert all(np.isfinite(v) for v in metrics.values())

@@ -15,12 +15,16 @@ from ray_tpu_torch.ops import _build
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-# The RLlib slice: four numpy copies, then the ports of JAX code.
+# The RLlib slices: the numpy copies, then the ports of JAX code; then the
+# podracer members and serve's _jsonable.
 RLLIB_MODULES = ["ray_tpu_torch.rllib." + m for m in (
     "sample_batch", "env", "connectors", "replay_buffer", "models",
     "catalog", "convert", "learner", "algorithms.a2c", "algorithms.pg",
     "env_runner", "algorithms.dqn", "algorithms.c51", "algorithms.qrdqn",
-    "algorithms.noisy", "algorithms.r2d2")]
+    "algorithms.noisy", "algorithms.r2d2", "offline", "algorithms.sac",
+    "algorithms.td3", "algorithms.cql", "algorithms.bc",
+    "algorithms.marwil")] + ["ray_tpu_torch.podracer.runtime",
+                             "ray_tpu_torch.serve.proxy"]
 
 
 def _all_modules():
@@ -62,13 +66,20 @@ def test_default_device_raises_without_cuda(monkeypatch):
 def test_rllib_default_device_raises_without_cuda(monkeypatch):
     """Learners and runners built with device=None go to the card, and
     raise without one, as gpt_init does."""
+    from ray_tpu_torch.rllib.algorithms.bc import BCLearner
     from ray_tpu_torch.rllib.algorithms.c51 import C51Learner
+    from ray_tpu_torch.rllib.algorithms.cql import CQLLearner
     from ray_tpu_torch.rllib.algorithms.dqn import DQNLearner
     from ray_tpu_torch.rllib.algorithms.noisy import NoisyDQNLearner
     from ray_tpu_torch.rllib.algorithms.qrdqn import QRDQNLearner
+    from ray_tpu_torch.podracer.runtime import _Learner, _RolloutWorker
+    from ray_tpu_torch.rllib.algorithms.marwil import MARWILLearner
     from ray_tpu_torch.rllib.algorithms.r2d2 import (R2D2Learner,
                                                      R2D2Runner)
-    from ray_tpu_torch.rllib.env_runner import (EnvRunner,
+    from ray_tpu_torch.rllib.algorithms.sac import SACLearner
+    from ray_tpu_torch.rllib.algorithms.td3 import TD3Learner
+    from ray_tpu_torch.rllib.env_runner import (ContinuousEnvRunner,
+                                                EnvRunner,
                                                 MultiAgentEnvRunner)
     from ray_tpu_torch.rllib.learner import PPOLearner
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -83,6 +94,14 @@ def test_rllib_default_device_raises_without_cuda(monkeypatch):
         lambda: R2D2Runner("MemoryCue", {}, 1, 0),
         lambda: MultiAgentEnvRunner("MultiCartPole", {}, ["p"],
                                     lambda a: "p"),
+        lambda: ContinuousEnvRunner("Pendulum-v1", {}, 1, 0),
+        lambda: SACLearner(3, 1, -2.0, 2.0),
+        lambda: TD3Learner(3, 1, -2.0, 2.0),
+        lambda: CQLLearner(3, 1, -2.0, 2.0),
+        lambda: BCLearner(4, 2),
+        lambda: MARWILLearner(4, 2),
+        lambda: _RolloutWorker("CartPole-v1", {}, 1, 4, 0),
+        lambda: _Learner(4, 2, lr=5e-4),
     ]
     for build in builds:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

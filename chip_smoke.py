@@ -77,6 +77,19 @@ Phases, each of which raises on failure:
       update, CQL's logsumexp over the batch axis, MARWIL's weights on the
       old adv_norm. Update times, time per env step, and the continuous
       runner's sampling under torch.profiler;
+  (o) every algorithm of ray_tpu_torch.rllib (PPO, PPO multi-agent, A2C,
+      PG, IMPALA, APPO, DQN, C51, QR-DQN, Noisy DQN, R2D2, APEX-DQN, SAC,
+      TD3, DDPG, CQL, BC, MARWIL, ES, ARS) built from its config and run
+      through build().train() with the in-process runtime and the device
+      left to its default (the card), at the JAX configs' default widths
+      cut in iterations (ALGO_ITERS); each gated against a CPU run of the
+      same config from the same weights, TF32 off: sampled batches
+      identical, the first updating iteration's loss within 1e-4, runners
+      holding the learner's weights; controls that must fail: PPO and DQN
+      with the post-update broadcast skipped. A checkpoint round trip on
+      the card; iteration ms on the card and on the CPU; for PPO and DQN
+      the copies and syncs of one iteration under torch.profiler. No kernel
+      of K1-K3 runs here;
   (g) one line {"kernels": [...]} (launches from the main path, e);
   (h) last line {"ok": true, "device": {...}}.
 
@@ -1210,22 +1223,17 @@ def _rl_report(tag, label, card_ms, cpu_s, sample_s, steps, envs) -> None:
         f"clock, {steps} steps)")
 
 
-def _rl_profile_sampling(tag, runner, label, sample=None,
-                         closing=1) -> None:
-    """RL_PROFILED_STEPS vectorized steps of ``runner.sample`` (or of
-    ``sample(steps)``) under torch.profiler: device-to-host and
-    host-to-device copies, kernels and device time per step, against the
-    host clock. ``closing``: forwards after the last step (the fragment's
-    bootstrap)."""
+def _profile_counts(fn) -> tuple:
+    """``fn()`` under torch.profiler: -> (device-to-host copies,
+    host-to-device copies, kernels, cudaMemcpy(Async) calls, stream or
+    device syncs, device ms, host ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    sample = sample or runner.sample
-    sample(2)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sample(RL_PROFILED_STEPS)
+        fn()
         torch.cuda.synchronize()
         host_ms = 1e3 * (time.perf_counter() - t0)
     d2h = h2d = kernels = copies = syncs = 0
@@ -1243,6 +1251,20 @@ def _rl_profile_sampling(tag, runner, label, sample=None,
             copies += e.count
         elif e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
             syncs += e.count
+    return d2h, h2d, kernels, copies, syncs, device_ms, host_ms
+
+
+def _rl_profile_sampling(tag, runner, label, sample=None,
+                         closing=1) -> None:
+    """RL_PROFILED_STEPS vectorized steps of ``runner.sample`` (or of
+    ``sample(steps)``) under torch.profiler: device-to-host and
+    host-to-device copies, kernels and device time per step, against the
+    host clock. ``closing``: forwards after the last step (the fragment's
+    bootstrap)."""
+    sample = sample or runner.sample
+    sample(2)
+    d2h, h2d, kernels, copies, syncs, device_ms, host_ms = _profile_counts(
+        lambda: sample(RL_PROFILED_STEPS))
     n = RL_PROFILED_STEPS + closing
     log(f"[{tag}] {label} sampling under torch.profiler, {RL_PROFILED_STEPS} "
         f"vectorized steps (+{closing} closing forward), per step: "
@@ -1775,6 +1797,388 @@ def phase_offpolicy() -> None:
 
 
 # ---------------------------------------------------------------------------
+# (o) RLlib's algorithms through their own entry points
+# ---------------------------------------------------------------------------
+
+# Every algorithm of ray_tpu_torch.rllib at its JAX config's defaults:
+# AlgorithmConfig's hidden (64, 64), 2 runners x 1 env, lr 5e-4
+# (ray_tpu/rllib/algorithm.py:21-32) and each config's own fragment,
+# minibatch, epochs, buffer and learning_starts (APEX's 4 runners). Cut
+# only in iterations: the on-policy, continuous, offline and ES algorithms
+# take 3; DQN, C51, QR-DQN and Noisy DQN (64 steps an iteration, learning
+# from 500 stored) 9; R2D2 (32 steps an iteration) 17; APEX (128) 6. Each
+# off-policy algorithm so updates in its last two iterations.
+ALGO_ITERS = dict(on=3, q=9, r2d2=17, apex=6)
+# The gate (TF32 off): the card's run against a CPU run of the same
+# config from the same weights (a fresh card algorithm's checkpoint):
+#   - every sampled batch identical (actions, rewards, terminations) up to
+#     and including the iteration after the first update;
+#   - the first updating iteration's loss within ALGO_LOSS_RTOL, relative;
+#   - after every iteration each runner holds the learner's weights.
+# The SAC family's updates take the CPU run's draws (``noise=``); Noisy DQN
+# draws in its runners and updates on the device, so its gate holds the
+# step counts, replay size, updates and target syncs instead of the batch
+# and the loss. Controls that must fail it: PPO and DQN with the broadcast
+# after their updates skipped.
+ALGO_LOSS_RTOL = 1e-4
+CARD = None        # the device phase (o) leaves to its default: the card
+_SAMPLERS = ("sample", "sample_transitions", "sample_sequences",
+             "evaluate_perturbations")
+
+
+def _algo_configs(data) -> list:
+    """(label, config factory, iterations, loss key, draws): draws "update"
+    (the SAC family: the card's updates take the CPU run's draws),
+    "device" (Noisy DQN: runners and updates draw on the device) or
+    None."""
+    from ray_tpu_torch import rllib as R
+    it = ALGO_ITERS
+
+    def two_policies():
+        return R.PPOConfig().environment("MultiCartPole").multi_agent(
+            policies=["p0", "p1"], policy_mapping_fn=_policy_of)
+
+    return [
+        ("PPO", R.PPOConfig, it["on"], "total_loss", None),
+        ("PPO multi-agent", two_policies, it["on"], "p0/total_loss", None),
+        ("A2C", R.A2CConfig, it["on"], "total_loss", None),
+        ("PG", R.PGConfig, it["on"], "total_loss", None),
+        ("IMPALA", R.ImpalaConfig, it["on"], "total_loss", None),
+        ("APPO", R.APPOConfig, it["on"], "total_loss", None),
+        ("DQN", R.DQNConfig, it["q"], "loss", None),
+        ("C51", R.C51Config, it["q"], "loss", None),
+        ("QR-DQN", R.QRDQNConfig, it["q"], "loss", None),
+        ("Noisy DQN", R.NoisyDQNConfig, it["q"], None, "device"),
+        ("R2D2", lambda: R.R2D2Config().environment("MemoryCue"),
+         it["r2d2"], "loss", None),
+        ("APEX-DQN", R.ApexDQNConfig, it["apex"], "loss", None),
+        ("SAC", R.SACConfig, it["on"], "critic_loss", "update"),
+        ("TD3", R.TD3Config, it["on"], "critic_loss", "update"),
+        ("DDPG", R.DDPGConfig, it["on"], "critic_loss", "update"),
+        ("CQL", lambda: R.CQLConfig().offline_data(
+            input_path=data["pendulum"]), it["on"], "critic_loss", "update"),
+        ("BC", lambda: R.BCConfig().offline_data(
+            input_path=data["cartpole"]), it["on"], "loss", None),
+        ("MARWIL", lambda: R.MARWILConfig().offline_data(
+            input_path=data["cartpole"]), it["on"], "loss", None),
+        ("ES", R.ESConfig, it["on"], "theta_norm", None),
+        ("ARS", R.ARSConfig, it["on"], "theta_norm", None),
+    ]
+
+
+def _policy_of(agent: str) -> str:
+    return f"p{agent[-1]}"
+
+
+def _algo_learners(algo) -> list:
+    if getattr(algo, "learners", None):
+        return list(algo.learners.values())
+    return [algo.learner] if hasattr(algo, "learner") else []
+
+
+def _algo_record(algo, draws=None, replay=False) -> dict:
+    """Wrap the in-process runners' samplers to keep what they return, and
+    the learners' updates to count them (and to record or replay the SAC
+    family's draws: ``draws`` is recorded into, or with ``replay`` taken
+    from, in order)."""
+    rec = {"samples": [], "updates": 0, "syncs": 0}
+    for handle in algo.env_runners:
+        runner = handle._obj
+        for name in _SAMPLERS:
+            if hasattr(runner, name):
+                fn = getattr(runner, name)
+
+                def kept(*a, _fn=fn, **kw):
+                    out = _fn(*a, **kw)
+                    rec["samples"].append(out)
+                    return out
+                setattr(runner, name, kept)
+    for ln in _algo_learners(algo):
+        update = ln.update
+
+        def counted(batch, *a, _ln=ln, _update=update, **kw):
+            rec["updates"] += 1
+            if not algo.env_runners:        # offline: the rows drawn
+                rec["samples"].append(batch)
+            if draws is not None:
+                if replay:
+                    kw["noise"] = draws.pop(0)
+                else:
+                    kw["noise"] = _ln.draw_noise(len(batch))
+                    draws.append(kw["noise"])
+            return _update(batch, *a, **kw)
+        ln.update = counted
+        if hasattr(ln, "sync_target"):
+            sync = ln.sync_target
+
+            def synced(_sync=sync):
+                rec["syncs"] += 1
+                return _sync()
+            ln.sync_target = synced
+    return rec
+
+
+def _same_samples(a, b) -> bool:
+    import numpy as np
+    from ray_tpu_torch.rllib.sample_batch import MultiAgentBatch
+    if isinstance(a, MultiAgentBatch):
+        pa, pb = a.policy_batches, b.policy_batches
+        return sorted(pa) == sorted(pb) and all(
+            _same_samples(pa[k], pb[k]) for k in pa)
+    if isinstance(a, dict):
+        keys = [k for k in ("actions", "rewards", "terminateds",
+                            "truncateds", "dones") if k in a]
+        return bool(keys) and all(
+            np.array_equal(np.asarray(a[k]), np.asarray(b[k]))
+            for k in keys)
+    return np.array_equal(np.asarray(a, np.float64),
+                          np.asarray(b, np.float64))
+
+
+def _runners_synced(algo) -> bool:
+    """Each in-process runner holds the weights the learners last handed
+    it (what broadcast_weights sends)."""
+    if not _algo_learners(algo) or not algo.env_runners:
+        return True
+    for handle in algo.env_runners:
+        runner = handle._obj
+        if getattr(algo, "learners", None):
+            pairs = [(runner.modules[pid], ln.get_weights())
+                     for pid, ln in algo.learners.items()]
+        elif hasattr(algo.learner, "get_actor_weights"):
+            pairs = [(runner.module, algo.learner.get_actor_weights())]
+        else:
+            pairs = [(runner.module, algo.learner.get_weights())]
+        for module, want in pairs:
+            for k, v in module.state_dict().items():
+                if not torch.equal(v, want[k].to(v.device)):
+                    return False
+    return True
+
+
+def _algo_state(algo) -> dict:
+    """Every array a checkpoint restores, on the host, by name."""
+    import numpy as np
+    out = {}
+    learners = (getattr(algo, "learners", None)
+                or {"": getattr(algo, "learner", None)})
+    for pid, ln in learners.items():
+        if ln is None:
+            continue
+        for k, v in ln.get_weights().items():
+            out[f"{pid}/{k}"] = v.cpu()
+        if hasattr(ln, "get_target_weights"):
+            for k, v in ln.get_target_weights().items():
+                out[f"{pid}/target.{k}"] = v.cpu()
+        if hasattr(ln, "adv_norm"):
+            out[f"{pid}/adv_norm"] = ln.adv_norm.cpu()
+    for k in ("theta", "_m", "_v"):
+        if hasattr(algo, k):
+            out[k] = torch.from_numpy(np.asarray(getattr(algo, k)))
+    return out
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.cpu() if torch.is_tensor(tree) else tree
+
+
+def _algo_run(make, iters, device, ckpt=None, draws=None, replay=False,
+              skip_broadcast=False):
+    """Build from the config, load ``ckpt`` (before anything samples, as
+    IMPALA primes its rollouts in setup), train ``iters`` iterations. ->
+    (algo, results, host ms per iteration, per-iteration record)."""
+    cfg = make()
+    cfg.resources(device=device)
+    if ckpt is not None:
+        base = cfg.algo_class
+
+        class Loaded(base):
+            def build_learner(self):
+                super().build_learner()
+                self.load_checkpoint(ckpt)
+        cfg.algo_class = Loaded
+    algo = cfg.build()
+    if skip_broadcast:
+        algo.broadcast_weights = lambda params: None
+    rec = _algo_record(algo, draws, replay)
+    results, ms, per_iter = [], [], []
+    for _ in range(iters):
+        rec.update(samples=[], updates=0, syncs=0)
+        t0 = time.perf_counter()
+        results.append(algo.train())
+        if device != "cpu":
+            torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        per_iter.append(dict(samples=rec["samples"],
+                             updates=rec["updates"], syncs=rec["syncs"],
+                             synced=_runners_synced(algo)))
+    return algo, results, ms, per_iter
+
+
+def _algo_gate(card, ref, loss_key, draws) -> tuple:
+    """-> (passed, the reading). ``card`` and ``ref``: _algo_run's
+    (results, per-iteration records)."""
+    (rc, ic), (rr, ir) = card, ref
+    first = next((i for i, r in enumerate(rr)
+                  if loss_key is not None and loss_key in r), None)
+    upto = len(rr) if first is None else min(len(rr), first + 2)
+    counts = ["num_env_steps_sampled", "replay_size", "replay_sequences",
+              "buffer_size", "num_samples_trained"]
+    if draws != "device":
+        counts.append("episodes_total")
+    same_counts = all(rc[i].get(k) == rr[i].get(k) and
+                      ic[i]["updates"] == ir[i]["updates"] and
+                      ic[i]["syncs"] == ir[i]["syncs"]
+                      for i in range(len(rr)) for k in counts)
+    same_batches = draws == "device" or all(
+        len(ic[i]["samples"]) == len(ir[i]["samples"]) and all(
+            _same_samples(a, b) for a, b in zip(ic[i]["samples"],
+                                                ir[i]["samples"]))
+        for i in range(upto))
+    synced = all(r["synced"] for r in ic)
+    reading = (("batches not compared (drawn on the device)"
+                if draws == "device" else
+                f"batches identical through iteration {upto}: "
+                f"{same_batches}") + f"; counts, updates and target syncs "
+               f"equal: {same_counts}; runners hold the learner's weights: "
+               f"{synced}; ")
+    loss_ok = True
+    if first is None:
+        reading += "no loss"
+    else:
+        lc, lr_ = float(rc[first][loss_key]), float(rr[first][loss_key])
+        loss_rel = abs(lc - lr_) / max(abs(lr_), 1e-30)
+        loss_ok = math.isfinite(lc) and loss_rel <= ALGO_LOSS_RTOL
+        reading += (f"{loss_key} at iteration {first + 1} {lc:.6g} against "
+                    f"the CPU's {lr_:.6g}, rel {loss_rel:.2e} (tol "
+                    f"{ALGO_LOSS_RTOL:.0e})")
+    return same_counts and same_batches and synced and loss_ok, reading
+
+
+def _algo_data(tmp) -> dict:
+    """The offline algorithms' input, made on the CPU: 1200 CartPole steps
+    of two EnvRunners (3 fragments of 200 each) and 1200 Pendulum
+    transitions of two ContinuousEnvRunners acting at random, written by
+    JsonWriter."""
+    from ray_tpu_torch.rllib.env_runner import ContinuousEnvRunner, EnvRunner
+    from ray_tpu_torch.rllib.offline import JsonWriter
+    out = {}
+    for name, make, sample in (
+            ("cartpole", lambda i: EnvRunner(
+                "CartPole-v1", {}, 1, SEED + 1000 * i, device="cpu"),
+             lambda r: r.sample(200)),
+            ("pendulum", lambda i: ContinuousEnvRunner(
+                "Pendulum-v1", {}, 1, SEED + 1000 * i, device="cpu"),
+             lambda r: r.sample_transitions(200, random_until=10 ** 9))):
+        out[name] = os.path.join(tmp, name)
+        writer = JsonWriter(out[name])
+        for i in range(2):
+            runner = make(i)
+            for _ in range(3):
+                writer.write(sample(runner))
+        writer.close()
+    return out
+
+
+def phase_algorithms() -> None:
+    """(o) Every algorithm of ray_tpu_torch.rllib built from its config and
+    trained through ``build().train()``, the learners and runners on the
+    card (device left to its default) and the runners behind the
+    in-process runtime (``local_runtime``), at the JAX configs' default
+    widths cut in iterations (ALGO_ITERS). Each is gated against a CPU run
+    of the same config from the same weights (ALGO_LOSS_RTOL and the
+    checks above it); PPO and DQN with their post-update broadcast skipped
+    must fail the gate; a save_checkpoint loaded into a fresh algorithm on
+    the card restores every array bit for bit. Printed per algorithm:
+    iteration ms on the card and on the CPU (host clock, median after the
+    first), env steps and updates per iteration; for PPO and DQN one more
+    iteration under torch.profiler (copies and syncs). This phase does not
+    import ray_tpu: the injected runtime (``build(runtime=ray_tpu)``) is
+    exercised by the CPU tests alone."""
+    import tempfile
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("[o] torch.backends.cuda.matmul.allow_tf32 = False, "
+        "cudnn.allow_tf32 = False")
+    with tempfile.TemporaryDirectory() as tmp:
+        configs = _algo_configs(_algo_data(tmp))
+        for label, make, iters, loss_key, draws in configs:
+            _algo_one(label, make, iters, loss_key, draws)
+    torch.cuda.empty_cache()
+    log(f"[o] phase (o) took {time.perf_counter() - t_start:.1f} s")
+
+
+def _algo_one(label, make, iters, loss_key, draws) -> None:
+    # The weights both runs start from: a fresh card algorithm's.
+    first = _algo_run(make, 0, CARD)[0]
+    ckpt = first.save_checkpoint()
+    first.stop()
+    shared = [] if draws == "update" else None
+    cpu_algo, rr, cpu_ms, ir = _algo_run(make, iters, "cpu",
+                                         _to_cpu(ckpt), shared)
+    cpu_algo.stop()
+    algo, rc, card_ms, ic = _algo_run(make, iters, CARD, ckpt, shared,
+                                      replay=True)
+    ok, reading = _algo_gate((rc, ic), (rr, ir), loss_key, draws)
+    log(f"[o] gate {label}: {reading}: {'pass' if ok else 'fail'}")
+    if not ok:
+        raise AssertionError(f"{label} failed the gate")
+    if label in ("PPO", "DQN"):
+        c_algo, c_res, _, c_rec = _algo_run(make, iters, CARD, ckpt,
+                                            skip_broadcast=True)
+        c_algo.stop()
+        c_ok, c_reading = _algo_gate((c_res, c_rec), (rr, ir), loss_key,
+                                     draws)
+        log(f"[o] gate {label}, control, broadcast after the update "
+            f"skipped (must fail): {c_reading}: "
+            f"{'pass' if c_ok else 'fail'}")
+        if c_ok:
+            raise AssertionError(f"{label}: the control passed the gate")
+    steps = [r.get("num_env_steps_sampled", r.get("num_samples_trained"))
+             for r in rc]
+    if label in ("SAC", "TD3", "DDPG"):       # lifetime counts
+        steps = [b - a for a, b in zip([0] + steps, steps)]
+    minib = [r.get("num_minibatch_updates", r.get("p0/num_minibatch_updates"))
+             for r in rc]
+    log(f"[o] {label}: iteration {statistics.median(card_ms[1:]):.1f} ms on "
+        f"the card, {statistics.median(cpu_ms[1:]):.1f} ms on the CPU (host "
+        f"clock, median of iterations 2-{iters}); "
+        + (f"{'env steps' if algo.env_runners else 'rows'} per "
+           f"iteration {steps}; " if steps[0] is not None
+           else "greedy evaluation episodes only; ")
+        + f"learner updates per iteration {[i['updates'] for i in ic]}"
+        + (f" (minibatch steps {minib})" if minib[0] is not None else "")
+        + f"; last {_algo_summary(rc[-1])}")
+    fresh = _algo_run(lambda: make().debugging(seed=SEED + 1), 0, CARD)[0]
+    fresh.load_checkpoint(algo.save_checkpoint())
+    want, got = _algo_state(algo), _algo_state(fresh)
+    differ = [k for k in want if not torch.equal(want[k], got[k])]
+    log(f"[o] {label} checkpoint: {len(want)} arrays restored into a fresh "
+        f"algorithm on the card, differing: {differ or 'none'}")
+    if sorted(want) != sorted(got) or differ or not want:
+        raise AssertionError(f"{label}: checkpoint round trip differs")
+    fresh.stop()
+    if label in ("PPO", "DQN"):
+        d2h, h2d, kernels, copies, syncs, dev_ms, host_ms = _profile_counts(
+            algo.train)
+        log(f"[o] {label} one iteration under torch.profiler: {d2h} "
+            f"device-to-host and {h2d} host-to-device copies ({copies} "
+            f"cudaMemcpy(Async) calls), {syncs} stream syncs, {kernels} "
+            f"kernels, device {dev_ms:.2f} ms of {host_ms:.1f} ms on the host "
+            f"clock (the card idle {100 * (1 - dev_ms / host_ms):.1f}% of it)")
+    algo.stop()
+
+
+def _algo_summary(result) -> str:
+    keys = [k for k in ("total_loss", "loss", "critic_loss", "theta_norm",
+                        "episode_reward_mean") if k in result]
+    return ", ".join(f"{k} {float(result[k]):.4g}" for k in keys)
+
+
+# ---------------------------------------------------------------------------
 # (f) kernel timing
 # ---------------------------------------------------------------------------
 
@@ -1903,6 +2307,7 @@ def main() -> int:
     phase_pipeline()
     phase_rllib()
     phase_offpolicy()
+    phase_algorithms()
     kernels = [dict(name=n, route="cuda", source=SOURCES[n],
                     replaces=REPLACES[n],
                     launches=launches[n], max_abs_err=errs[n],

@@ -1,1 +1,2 @@
-"""The learners and runners of ``ray_tpu/rllib/algorithms``, in torch."""
+"""The learners, runners and algorithms of ``ray_tpu/rllib/algorithms``,
+in torch."""

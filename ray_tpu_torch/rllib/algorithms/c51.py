@@ -1,5 +1,5 @@
-"""C51's compute: the port of ``ray_tpu/rllib/algorithms/c51.py``
-(``C51Runner`` :48, ``C51Learner`` :78).
+"""C51: the port of ``ray_tpu/rllib/algorithms/c51.py`` (``C51Config`` :25,
+``C51Runner`` :48, ``C51Learner`` :78, ``C51`` :174).
 
 Reference parity: rllib/algorithms/dqn with num_atoms>1. The Q network
 emits a categorical distribution over `n_atoms` fixed support atoms per
@@ -10,15 +10,35 @@ vectorized with two ``scatter_add_``s (JAX's ``.at[].add``).
 
 from __future__ import annotations
 
+from typing import Any, Dict
+
 import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.rllib import sample_batch as sb
-from ray_tpu_torch.rllib.algorithms.dqn import (NSTEP_GAMMAS, QLearner,
+from ray_tpu_torch.rllib.algorithms.dqn import (DQN, NSTEP_GAMMAS,
+                                                DQNConfig, QLearner,
                                                 _greedy)
 from ray_tpu_torch.rllib.env_runner import EnvRunner
 from ray_tpu_torch.rllib.models import mlp_apply, policy_value_init, seeded
+
+
+class C51Config(DQNConfig):
+    def __init__(self, algo_class=None):
+        super().__init__(algo_class or C51)
+        self.n_atoms = 51
+        self.v_min = -10.0
+        self.v_max = 10.0
+
+    def training(self, *, n_atoms=None, v_min=None, v_max=None,
+                 **kw) -> "C51Config":
+        super().training(**kw)
+        for name, val in (("n_atoms", n_atoms), ("v_min", v_min),
+                          ("v_max", v_max)):
+            if val is not None:
+                setattr(self, name, val)
+        return self
 
 
 def _dist_init(seed, obs_dim, num_actions, n_atoms, hidden, device):
@@ -99,3 +119,24 @@ class C51Learner(QLearner):
         # the same signal for distributional Q).
         return (c["weights"] * ce).mean(), ce
 
+
+
+class C51(DQN):
+    config_class = C51Config
+    supports_model_config = False  # custom head, not catalog-built
+
+    def _runner_class(self):
+        return C51Runner
+
+    def _extra_runner_kwargs(self) -> Dict[str, Any]:
+        cfg = self.algo_config
+        return {"n_atoms": cfg.n_atoms, "v_min": cfg.v_min,
+                "v_max": cfg.v_max}
+
+    def _make_q_learner(self, probe):
+        cfg = self.algo_config
+        return C51Learner(
+            probe.observation_dim, probe.num_actions, hidden=cfg.hidden,
+            lr=cfg.lr, gamma=cfg.gamma, n_atoms=cfg.n_atoms,
+            v_min=cfg.v_min, v_max=cfg.v_max, double_q=cfg.double_q,
+            seed=cfg.seed, device=cfg.device)

@@ -1,12 +1,12 @@
-"""DQN's compute: the port of ``ray_tpu/rllib/algorithms/dqn.py``
-(``nstep_transform`` :71, ``DQNLearner`` :118, ``CatalogQRunner`` :214,
-``DuelingDQNRunner`` :235).
+"""DQN: the port of ``ray_tpu/rllib/algorithms/dqn.py`` (``DQNConfig`` :28,
+``nstep_transform`` :71, ``DQNLearner`` :118, ``CatalogQRunner`` :214,
+``DuelingDQNRunner`` :235, ``DQN`` :256).
 
-Reference parity: rllib/algorithms/dqn/dqn.py (TD update with a target
-network and double-Q bootstrapping). The algorithm's training loop (``DQN``,
-a ``tune.Trainable``: sample -> store -> replay -> update -> target sync)
-is orchestration and is not ported: a caller composes a runner, a
-``ReplayBuffer`` and a learner the way its ``training_step`` does.
+Reference parity: rllib/algorithms/dqn/dqn.py (training_step: sample ->
+store -> replay -> TD update -> target sync, with a target network and
+double-Q bootstrapping) with optional prioritized replay
+(rllib/utils/replay_buffers/prioritized_replay_buffer.py). Exploration is
+epsilon-greedy with linear decay.
 
 ``QLearner`` is the update the value-based learners share (DQN, C51,
 QR-DQN, Noisy DQN, R2D2): one Adam step on a replayed batch, the target
@@ -24,13 +24,58 @@ import torch
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.rllib import sample_batch as sb
+from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig
 from ray_tpu_torch.rllib.catalog import (ModelConfig, catalog_q_apply,
                                          catalog_q_init, obs_shape_of)
+from ray_tpu_torch.rllib.env import make_env
 from ray_tpu_torch.rllib.env_runner import EnvRunner
 from ray_tpu_torch.rllib.learner import Learner, to_tensor
 from ray_tpu_torch.rllib.models import (mlp_apply, policy_value_init,
                                         seeded)
-from ray_tpu_torch.rllib.sample_batch import SampleBatch
+from ray_tpu_torch.rllib.replay_buffer import (PrioritizedReplayBuffer,
+                                               ReplayBuffer)
+from ray_tpu_torch.rllib.sample_batch import SampleBatch, concat_samples
+
+
+class DQNConfig(AlgorithmConfig):
+    def __init__(self, algo_class=None):
+        super().__init__(algo_class or DQN)
+        self.rollout_fragment_length = 32
+        self.n_step = 1
+        self.replay_buffer_capacity = 50_000
+        self.learning_starts = 500
+        self.target_network_update_freq = 500   # in sampled env steps
+        self.epsilon_start = 1.0
+        self.epsilon_end = 0.05
+        self.epsilon_decay_steps = 5_000
+        self.double_q = True
+        self.dueling = False
+        self.prioritized_replay = False
+        self.train_batch_size = 64
+        self.updates_per_step = 4
+
+    def training(self, *, replay_buffer_capacity=None, learning_starts=None,
+                 target_network_update_freq=None, epsilon_start=None,
+                 epsilon_end=None, epsilon_decay_steps=None, double_q=None,
+                 prioritized_replay=None, updates_per_step=None,
+                 n_step=None, dueling=None, **kw) -> "DQNConfig":
+        super().training(**kw)
+        for name, val in (("n_step", n_step),
+                          ("dueling", dueling),
+                          ("replay_buffer_capacity", replay_buffer_capacity),
+                          ("learning_starts", learning_starts),
+                          ("target_network_update_freq",
+                           target_network_update_freq),
+                          ("epsilon_start", epsilon_start),
+                          ("epsilon_end", epsilon_end),
+                          ("epsilon_decay_steps", epsilon_decay_steps),
+                          ("double_q", double_q),
+                          ("prioritized_replay", prioritized_replay),
+                          ("updates_per_step", updates_per_step)):
+            if val is not None:
+                setattr(self, name, val)
+        return self
+
 
 NSTEP_GAMMAS = "nstep_gammas"
 
@@ -104,6 +149,13 @@ class QLearner(Learner):
 
     def sync_target(self):
         self.target = copy.deepcopy(self.module).requires_grad_(False)
+
+    def get_target_weights(self) -> Dict[str, torch.Tensor]:
+        return {k: v.detach().clone()
+                for k, v in self.target.state_dict().items()}
+
+    def set_target_weights(self, weights) -> None:
+        self.target.load_state_dict(weights)
 
     def _columns(self, batch) -> Dict[str, torch.Tensor]:
         cols = {k: to_tensor(batch[k], self.device) for k in self._COLUMNS}
@@ -206,3 +258,120 @@ class DuelingDQNRunner(EnvRunner):
             e0.observation_dim, e0.num_actions, tuple(hidden),
             generator=seeded(seed), device=self.device)
         self._forward = _greedy(dueling_q)
+
+
+class DQN(Algorithm):
+    config_class = DQNConfig
+    # Catalog model configs (CNN Q-nets) supported by DQN/APEX; the
+    # distributional/noisy variants build their own heads and opt out.
+    supports_model_config = True
+
+    def _validate_config(self):
+        super()._validate_config()
+        cfg = self.algo_config
+        # Catalog-combo checks only apply where the catalog is in play
+        # (opted-out variants route model=None and keep the legacy net).
+        if cfg.model is not None and self.supports_model_config:
+            if cfg.dueling:
+                raise ValueError("dueling=True cannot combine with a "
+                                 "catalog model config")
+            if ModelConfig.from_dict(cfg.model).use_lstm:
+                raise ValueError("use_lstm is not supported for "
+                                 "value-based Q networks (R2D2 "
+                                 "territory)")
+
+    def _runner_class(self):
+        if self.algo_config.model is not None:
+            return CatalogQRunner
+        return (DuelingDQNRunner if self.algo_config.dueling
+                else EnvRunner)
+
+    def _make_q_learner(self, probe):
+        """Q-learner factory; the distributional variant (C51) overrides
+        just this instead of copying build_learner."""
+        cfg = self.algo_config
+        return DQNLearner(
+            probe.observation_dim, probe.num_actions, hidden=cfg.hidden,
+            lr=cfg.lr, gamma=cfg.gamma, double_q=cfg.double_q,
+            dueling=cfg.dueling, seed=cfg.seed,
+            obs_shape=obs_shape_of(probe), model=cfg.model,
+            device=cfg.device)
+
+    def _make_replay(self, capacity: int):
+        cfg = self.algo_config
+        buf_cls = (PrioritizedReplayBuffer if cfg.prioritized_replay
+                   else ReplayBuffer)
+        return buf_cls(capacity, seed=cfg.seed)
+
+    def build_learner(self):
+        cfg = self.algo_config
+        probe = make_env(cfg.env, cfg.env_config)
+        self.learner = self._make_q_learner(probe)
+        self.replay = self._make_replay(cfg.replay_buffer_capacity)
+        self._steps_sampled = 0
+        self._last_target_sync = 0
+        self.broadcast_weights(self.learner.get_weights())
+
+    def _epsilon(self) -> float:
+        cfg = self.algo_config
+        frac = min(1.0, self._steps_sampled / max(1, cfg.epsilon_decay_steps))
+        return cfg.epsilon_start + frac * (cfg.epsilon_end
+                                           - cfg.epsilon_start)
+
+    def _replay_updates(self) -> float:
+        """``updates_per_step`` updates from the replay buffer (PER's
+        priorities moved after each), the new weights to the runners;
+        -> the mean loss."""
+        cfg = self.algo_config
+        losses = []
+        for _ in range(cfg.updates_per_step):
+            replayed = self.replay.sample(cfg.train_batch_size)
+            m = self.learner.update(replayed)
+            if cfg.prioritized_replay and "batch_indexes" in replayed:
+                self.replay.update_priorities(
+                    replayed["batch_indexes"], m["td_error"] + 1e-6)
+            losses.append(m["loss"])
+        self.broadcast_weights(self.learner.get_weights())
+        return float(np.mean(losses))
+
+    def _maybe_sync_target(self):
+        cfg = self.algo_config
+        if (self._steps_sampled - self._last_target_sync
+                >= cfg.target_network_update_freq):
+            self.learner.sync_target()
+            self._last_target_sync = self._steps_sampled
+
+    def training_step(self) -> Dict[str, Any]:
+        cfg = self.algo_config
+        eps = self._epsilon()
+        batches = self._rt.get(
+            [er.sample_transitions.remote(cfg.rollout_fragment_length, eps)
+             for er in self.env_runners])
+        if cfg.n_step > 1:
+            # Per-runner (each runner's batch has its own env interleave).
+            batches = [nstep_transform(b, cfg.n_step, cfg.gamma,
+                                       cfg.num_envs_per_env_runner)
+                       for b in batches]
+        batch = concat_samples(batches)
+        self.replay.add(batch)
+        self._steps_sampled += len(batch)
+        metrics: Dict[str, Any] = {"epsilon": eps,
+                                   "replay_size": len(self.replay),
+                                   "num_env_steps_sampled": len(batch)}
+        if len(self.replay) >= cfg.learning_starts:
+            metrics["loss"] = self._replay_updates()
+        self._maybe_sync_target()
+        return metrics
+
+    def save_checkpoint(self):
+        return {"params": self.learner.get_weights(),
+                "target": self.learner.get_target_weights(),
+                "steps": self._steps_sampled,
+                "iteration": self._iteration}
+
+    def load_checkpoint(self, ckpt):
+        self.learner.set_weights(ckpt["params"])
+        self.learner.set_target_weights(ckpt["target"])
+        self._steps_sampled = ckpt.get("steps", 0)
+        self._iteration = ckpt.get("iteration", 0)
+        self.broadcast_weights(self.learner.get_weights())

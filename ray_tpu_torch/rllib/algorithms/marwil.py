@@ -1,6 +1,5 @@
-"""MARWIL's compute: the port of ``ray_tpu/rllib/algorithms/marwil.py``
-(``_returns_to_go`` :50, ``MARWIL.build_learner`` :84,
-``MARWIL.training_step`` :130).
+"""MARWIL: the port of ``ray_tpu/rllib/algorithms/marwil.py``
+(``MARWILConfig`` :26, ``_returns_to_go`` :50, ``MARWIL`` :65).
 
 Reference parity: rllib/algorithms/marwil/marwil.py (Wang et al. 2018):
 offline imitation where each action's log-likelihood is weighted by
@@ -10,22 +9,49 @@ plain BC. The running normalizer of squared advantages (``adv_norm``,
 it first and weights its own step with the moved value. Returns-to-go are
 computed per stored fragment when the data is read
 (``frag["returns"] = _returns_to_go(frag, gamma)`` over
-``JsonReader.iter_batches``), which is the caller's.
+``JsonReader.iter_batches``).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
 
 from ray_tpu_torch.rllib import sample_batch as sb
-from ray_tpu_torch.rllib.algorithms.bc import BCLearner, taken_logp
+from ray_tpu_torch.rllib.algorithm import AlgorithmConfig
+from ray_tpu_torch.rllib.algorithms.bc import (BC, BCLearner, read_offline,
+                                               taken_logp)
+from ray_tpu_torch.rllib.env import make_env
 from ray_tpu_torch.rllib.models import policy_value_apply
-from ray_tpu_torch.rllib.sample_batch import SampleBatch
+from ray_tpu_torch.rllib.sample_batch import SampleBatch, concat_samples
 
 RETURNS = "returns"
+
+
+class MARWILConfig(AlgorithmConfig):
+    def __init__(self, algo_class=None):
+        super().__init__(algo_class or MARWIL)
+        self.input_path = ""
+        self.beta = 1.0                 # advantage exponent; 0 => BC
+        self.vf_coeff = 1.0
+        self.moving_average_sqd_adv_norm_update_rate = 1e-2
+        self.train_batch_size = 256
+        self.num_env_runners = 0
+
+    def offline_data(self, *, input_path=None) -> "MARWILConfig":
+        if input_path is not None:
+            self.input_path = input_path
+        return self
+
+    def training(self, *, beta=None, vf_coeff=None, **kw) -> "MARWILConfig":
+        super().training(**kw)
+        if beta is not None:
+            self.beta = beta
+        if vf_coeff is not None:
+            self.vf_coeff = vf_coeff
+        return self
 
 
 def _returns_to_go(batch: SampleBatch, gamma: float) -> np.ndarray:
@@ -76,3 +102,41 @@ class MARWILLearner(BCLearner):
         self._step(loss)
         vals = torch.stack([loss, p_loss, v_loss]).detach()
         return dict(zip(self._METRICS, vals.tolist()))
+
+
+class MARWIL(BC):
+    """BC's offline loop with the advantage-weighted learner (the
+    reference's BC is MARWIL with beta=0)."""
+
+    config_class = MARWILConfig
+
+    def setup(self, config: Dict[str, Any]):
+        gamma = self.algo_config.gamma
+        frags = []
+        for frag in read_offline(self).iter_batches():
+            frag[RETURNS] = _returns_to_go(frag, gamma)
+            frags.append(frag)
+        self.data = concat_samples(frags)
+        self.build_learner()
+
+    def build_learner(self):
+        cfg = self.algo_config
+        probe = make_env(cfg.env, cfg.env_config)
+        self.learner = MARWILLearner(
+            probe.observation_dim, probe.num_actions, hidden=cfg.hidden,
+            lr=cfg.lr, beta=cfg.beta, vf_coeff=cfg.vf_coeff,
+            moving_average_sqd_adv_norm_update_rate=(
+                cfg.moving_average_sqd_adv_norm_update_rate),
+            seed=cfg.seed, device=cfg.device)
+
+    def save_checkpoint(self):
+        ckpt = super().save_checkpoint()
+        ckpt["adv_norm"] = self.learner.adv_norm.clone()
+        return ckpt
+
+    def load_checkpoint(self, ckpt):
+        super().load_checkpoint(ckpt)
+        if "adv_norm" in ckpt:
+            self.learner.adv_norm = torch.as_tensor(
+                ckpt["adv_norm"], dtype=torch.float32,
+                device=self.learner.device)

@@ -1,6 +1,6 @@
-"""NoisyNet-DQN's compute: the port of ``ray_tpu/rllib/algorithms/noisy.py``
-(``noisy_net_init`` :41, ``noisy_net_apply`` :63, ``NoisyDQNRunner`` :87,
-``NoisyDQNLearner`` :113).
+"""NoisyNet-DQN: the port of ``ray_tpu/rllib/algorithms/noisy.py``
+(``NoisyDQNConfig`` :26, ``noisy_net_init`` :41, ``noisy_net_apply`` :63,
+``NoisyDQNRunner`` :87, ``NoisyDQNLearner`` :113, ``NoisyDQN`` :192).
 
 Reference parity: Fortunato et al. 2018 factorized Gaussian noisy linear
 layers (the reference DQN's ``noisy: True``): every weight is
@@ -17,16 +17,33 @@ elsewhere (JAX's, in the parity tests).
 from __future__ import annotations
 
 import math
+from typing import Any, Dict
 
 import torch
 from torch import nn
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.rllib import sample_batch as sb
-from ray_tpu_torch.rllib.algorithms.dqn import (NSTEP_GAMMAS, QLearner,
+from ray_tpu_torch.rllib.algorithms.dqn import (DQN, NSTEP_GAMMAS,
+                                                DQNConfig, QLearner,
                                                 _greedy, taken)
 from ray_tpu_torch.rllib.env_runner import EnvRunner
 from ray_tpu_torch.rllib.models import Leaves, seeded
+
+
+class NoisyDQNConfig(DQNConfig):
+    def __init__(self, algo_class=None):
+        super().__init__(algo_class or NoisyDQN)
+        self.sigma0 = 0.5          # initial sigma scale (paper default)
+        # Exploration is the noise itself.
+        self.epsilon_start = 0.0
+        self.epsilon_end = 0.0
+
+    def training(self, *, sigma0=None, **kw) -> "NoisyDQNConfig":
+        super().training(**kw)
+        if sigma0 is not None:
+            self.sigma0 = sigma0
+        return self
 
 
 def noisy_net_init(seed: int, sizes, sigma0: float = 0.5,
@@ -131,3 +148,21 @@ class NoisyDQNLearner(QLearner):
             target = c[sb.REWARDS] + c[NSTEP_GAMMAS] * not_done * v_next
         td = q_taken - target
         return (c["weights"] * td * td).mean(), td.abs()
+
+
+class NoisyDQN(DQN):
+    config_class = NoisyDQNConfig
+    supports_model_config = False  # custom head, not catalog-built
+
+    def _runner_class(self):
+        return NoisyDQNRunner
+
+    def _extra_runner_kwargs(self) -> Dict[str, Any]:
+        return {"sigma0": self.algo_config.sigma0}
+
+    def _make_q_learner(self, probe):
+        cfg = self.algo_config
+        return NoisyDQNLearner(
+            probe.observation_dim, probe.num_actions, hidden=cfg.hidden,
+            lr=cfg.lr, gamma=cfg.gamma, double_q=cfg.double_q,
+            sigma0=cfg.sigma0, seed=cfg.seed, device=cfg.device)

@@ -1,5 +1,6 @@
-"""QR-DQN's compute: the port of ``ray_tpu/rllib/algorithms/qrdqn.py``
-(``QRDQNRunner`` :47, ``QRDQNLearner`` :71).
+"""QR-DQN: the port of ``ray_tpu/rllib/algorithms/qrdqn.py``
+(``QRDQNConfig`` :24, ``QRDQNRunner`` :47, ``QRDQNLearner`` :71,
+``QRDQN`` :154).
 
 Reference parity: Dabney et al. 2018 through the reference's DQN
 num_atoms/distributional family: the net emits N quantile estimates of the
@@ -9,14 +10,33 @@ pairwise [B, N, N] TD errors.
 
 from __future__ import annotations
 
+from typing import Any, Dict
+
 import torch
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.rllib import sample_batch as sb
-from ray_tpu_torch.rllib.algorithms.dqn import (NSTEP_GAMMAS, QLearner,
+from ray_tpu_torch.rllib.algorithms.dqn import (DQN, NSTEP_GAMMAS,
+                                                DQNConfig, QLearner,
                                                 _greedy)
 from ray_tpu_torch.rllib.env_runner import EnvRunner
 from ray_tpu_torch.rllib.models import mlp_apply, policy_value_init, seeded
+
+
+class QRDQNConfig(DQNConfig):
+    def __init__(self, algo_class=None):
+        super().__init__(algo_class or QRDQN)
+        self.n_quantiles = 32
+        self.kappa = 1.0          # Huber threshold
+
+    def training(self, *, n_quantiles=None, kappa=None,
+                 **kw) -> "QRDQNConfig":
+        super().training(**kw)
+        if n_quantiles is not None:
+            self.n_quantiles = n_quantiles
+        if kappa is not None:
+            self.kappa = kappa
+        return self
 
 
 def _quantile_init(seed, obs_dim, num_actions, n_quantiles, hidden, device):
@@ -84,3 +104,22 @@ class QRDQNLearner(QLearner):
         w = (self._tau[None, :, None] - (u < 0).float()).abs()
         per_sample = (w * huber).mean(-1).sum(-1)              # [B]
         return (c["weights"] * per_sample).mean(), per_sample
+
+
+class QRDQN(DQN):
+    config_class = QRDQNConfig
+    supports_model_config = False  # custom head, not catalog-built
+
+    def _runner_class(self):
+        return QRDQNRunner
+
+    def _extra_runner_kwargs(self) -> Dict[str, Any]:
+        return {"n_quantiles": self.algo_config.n_quantiles}
+
+    def _make_q_learner(self, probe):
+        cfg = self.algo_config
+        return QRDQNLearner(
+            probe.observation_dim, probe.num_actions, hidden=cfg.hidden,
+            lr=cfg.lr, gamma=cfg.gamma, n_quantiles=cfg.n_quantiles,
+            kappa=cfg.kappa, double_q=cfg.double_q, seed=cfg.seed,
+            device=cfg.device)

@@ -1,5 +1,5 @@
-"""R2D2's compute: the port of ``ray_tpu/rllib/algorithms/r2d2.py``
-(``R2D2Runner`` :61, ``R2D2Learner`` :156).
+"""R2D2: the port of ``ray_tpu/rllib/algorithms/r2d2.py`` (``R2D2Config``
+:34, ``R2D2Runner`` :61, ``R2D2Learner`` :156, ``R2D2`` :251).
 
 Reference parity: rllib/algorithms/r2d2 (Kapturowski et al. 2019):
 
@@ -17,21 +17,40 @@ Reference parity: rllib/algorithms/r2d2 (Kapturowski et al. 2019):
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.rllib import sample_batch as sb
-from ray_tpu_torch.rllib.algorithms.dqn import QLearner, taken
+from ray_tpu_torch.rllib.algorithms.dqn import (DQN, DQNConfig, QLearner,
+                                                taken)
 from ray_tpu_torch.rllib.catalog import (ModelConfig, catalog_rq_apply_seq,
                                          catalog_rq_apply_step,
                                          catalog_rq_init, obs_shape_of)
 from ray_tpu_torch.rllib.env import make_env
 from ray_tpu_torch.rllib.env_runner import EnvRunner, with_weights
 from ray_tpu_torch.rllib.models import seeded
-from ray_tpu_torch.rllib.sample_batch import SampleBatch
+from ray_tpu_torch.rllib.sample_batch import SampleBatch, concat_samples
+
+
+class R2D2Config(DQNConfig):
+    def __init__(self, algo_class=None):
+        super().__init__(algo_class or R2D2)
+        self.rollout_fragment_length = 16   # = training sequence length
+        self.lstm_cell_size = 32
+        self.burn_in = 0                    # carry-rebuild prefix steps
+        self.train_batch_size = 16          # sequences per update
+
+    def training(self, *, lstm_cell_size=None, burn_in=None,
+                 **kw) -> "R2D2Config":
+        super().training(**kw)
+        if lstm_cell_size is not None:
+            self.lstm_cell_size = lstm_cell_size
+        if burn_in is not None:
+            self.burn_in = burn_in
+        return self
 
 
 def _mcfg(cfg_hidden, lstm_cell_size, model):
@@ -176,3 +195,65 @@ class R2D2Learner(QLearner):
         # Per-sequence priority signal: mean |td|.
         per_seq = td.abs().sum(-1) / mask.sum(-1).clamp(min=1.0)
         return loss, per_seq
+
+
+class R2D2(DQN):
+    config_class = R2D2Config
+    supports_model_config = True   # catalog-built (torso choice applies)
+
+    def _validate_config(self):
+        # R2D2 IS the recurrent Q algorithm: skip DQN's no-LSTM check;
+        # dueling heads and n-step returns are not implemented on the
+        # sequence loss (targets come from the within-sequence t+1).
+        if self.algo_config.dueling:
+            raise ValueError("R2D2 does not support dueling heads")
+        if self.algo_config.n_step != 1:
+            raise ValueError("R2D2 bootstraps within the sequence; "
+                             "n_step is not supported")
+
+    def _runner_class(self):
+        return R2D2Runner
+
+    def _extra_runner_kwargs(self) -> Dict[str, Any]:
+        return {"lstm_cell_size": self.algo_config.lstm_cell_size}
+
+    def _make_q_learner(self, probe):
+        cfg = self.algo_config
+        return R2D2Learner(
+            obs_shape_of(probe), probe.num_actions, hidden=cfg.hidden,
+            lstm_cell_size=cfg.lstm_cell_size, lr=cfg.lr,
+            gamma=cfg.gamma, double_q=cfg.double_q, burn_in=cfg.burn_in,
+            model=cfg.model, seed=cfg.seed, device=cfg.device)
+
+    def build_learner(self):
+        cfg = self.algo_config
+        probe = make_env(cfg.env, cfg.env_config)
+        self.learner = self._make_q_learner(probe)
+        # Sequence replay: a SampleBatch row = one whole sequence, so
+        # the step-denominated capacity knob converts to sequences
+        # (same memory budget as the feedforward family).
+        self.replay = self._make_replay(
+            max(1, cfg.replay_buffer_capacity
+                // cfg.rollout_fragment_length))
+        self._steps_sampled = 0
+        self._last_target_sync = 0
+        self.broadcast_weights(self.learner.get_weights())
+
+    def training_step(self) -> Dict[str, Any]:
+        cfg = self.algo_config
+        eps = self._epsilon()
+        seq_batches = self._rt.get(
+            [er.sample_sequences.remote(cfg.rollout_fragment_length, eps)
+             for er in self.env_runners])
+        batch = concat_samples(seq_batches)
+        self.replay.add(batch)
+        steps = len(batch) * cfg.rollout_fragment_length
+        self._steps_sampled += steps
+        metrics: Dict[str, Any] = {
+            "epsilon": eps, "replay_sequences": len(self.replay),
+            "num_env_steps_sampled": steps}
+        if len(self.replay) * cfg.rollout_fragment_length \
+                >= cfg.learning_starts:
+            metrics["loss"] = self._replay_updates()
+        self._maybe_sync_target()
+        return metrics

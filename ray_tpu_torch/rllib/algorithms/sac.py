@@ -1,12 +1,12 @@
-"""SAC's compute: the port of ``ray_tpu/rllib/algorithms/sac.py``
-(``SACLearner`` :72).
+"""SAC: the port of ``ray_tpu/rllib/algorithms/sac.py`` (``SACConfig`` :25,
+``SACLearner`` :72, ``SAC`` :201).
 
 Reference parity: rllib/algorithms/sac/sac.py (+ sac_torch_policy losses):
 tanh-squashed Gaussian actor, clipped double-Q critics with Polyak-averaged
 targets, and automatic entropy-temperature tuning (target entropy
--action_dim). The algorithm's loop (``SAC.training_step``: sample with
+-action_dim). The algorithm's loop (``SAC.training_step``): sample with
 ``ContinuousEnvRunner``s -> replay buffer -> one update per sampled step ->
-actor weights to the runners) is orchestration and is not ported.
+actor weights to the runners.
 
 JAX differentiates each loss with respect to one part of its state tree.
 Here each step takes ``torch.autograd.grad`` of its loss with respect to
@@ -24,7 +24,7 @@ of the draws, shaped as JAX draws them (``draw_noise``).
 from __future__ import annotations
 
 import copy
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -32,10 +32,63 @@ from torch import nn
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.rllib import sample_batch as sb
+from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig
+from ray_tpu_torch.rllib.env import get_env_creator, make_env
+from ray_tpu_torch.rllib.env_runner import ContinuousEnvRunner
 from ray_tpu_torch.rllib.learner import ADAM_EPS, to_tensor
 from ray_tpu_torch.rllib.models import (seeded, squashed_gaussian_init,
                                         squashed_gaussian_sample,
                                         twin_q_apply, twin_q_init)
+from ray_tpu_torch.rllib.replay_buffer import (PrioritizedReplayBuffer,
+                                               ReplayBuffer)
+from ray_tpu_torch.rllib.sample_batch import concat_samples
+
+
+class SACConfig(AlgorithmConfig):
+    def __init__(self, algo_class=None):
+        super().__init__(algo_class or SAC)
+        self.env = "Pendulum-v1"
+        self.tau = 0.005
+        self.actor_lr = 3e-4
+        self.critic_lr = 3e-4
+        self.alpha_lr = 3e-4
+        self.initial_alpha = 1.0
+        self.target_entropy = None          # None => -action_dim
+        self.buffer_capacity = 100_000
+        self.random_warmup_steps = 500
+        self.grad_steps_per_iter = 0        # 0 => one per sampled step
+        self.train_batch_size = 256
+        self.rollout_fragment_length = 64
+        # Prioritized experience replay (reference: sac.py
+        # replay_buffer_config prioritized_replay*): proportional
+        # priorities from |TD error|, importance weights into the
+        # critic loss.
+        self.prioritized_replay = False
+        self.prioritized_replay_alpha = 0.6
+        self.prioritized_replay_beta = 0.4
+
+    def training(self, *, tau=None, actor_lr=None, critic_lr=None,
+                 alpha_lr=None, initial_alpha=None, target_entropy=None,
+                 buffer_capacity=None, random_warmup_steps=None,
+                 grad_steps_per_iter=None, prioritized_replay=None,
+                 prioritized_replay_alpha=None,
+                 prioritized_replay_beta=None, **kw) -> "SACConfig":
+        super().training(**kw)
+        for name, v in (("tau", tau), ("actor_lr", actor_lr),
+                        ("critic_lr", critic_lr), ("alpha_lr", alpha_lr),
+                        ("initial_alpha", initial_alpha),
+                        ("target_entropy", target_entropy),
+                        ("buffer_capacity", buffer_capacity),
+                        ("random_warmup_steps", random_warmup_steps),
+                        ("grad_steps_per_iter", grad_steps_per_iter),
+                        ("prioritized_replay", prioritized_replay),
+                        ("prioritized_replay_alpha",
+                         prioritized_replay_alpha),
+                        ("prioritized_replay_beta",
+                         prioritized_replay_beta)):
+            if v is not None:
+                setattr(self, name, v)
+        return self
 
 
 class StateTree(nn.Module):
@@ -232,3 +285,89 @@ class SACLearner(OffPolicyLearner):
         k = len(self._METRICS)
         self.last_td_error = vals[k:].numpy()
         return dict(zip(self._METRICS, vals[:k].tolist()))
+
+
+class SAC(Algorithm):
+    """Continuous control over ``ContinuousEnvRunner``s; TD3 and DDPG
+    share this loop with their own runner policy and learner."""
+
+    config_class = SACConfig
+
+    def _continuous_runner_kwargs(self) -> Dict[str, Any]:
+        return {}
+
+    def setup(self, config: Dict[str, Any]):
+        cfg = self.algo_config
+        creator = get_env_creator(cfg.env)
+        runner_cls = self._rt.remote(num_cpus=1)(ContinuousEnvRunner)
+        self.env_runners = [
+            runner_cls.remote(creator, cfg.env_config,
+                              cfg.num_envs_per_env_runner,
+                              seed=cfg.seed + 1000 * i, hidden=cfg.hidden,
+                              obs_connectors=cfg.obs_connectors,
+                              action_connectors=cfg.action_connectors,
+                              device=cfg.device,
+                              **self._continuous_runner_kwargs())
+            for i in range(cfg.num_env_runners)
+        ]
+        self._episode_rewards = []
+        self._steps_sampled = 0
+        if getattr(cfg, "prioritized_replay", False):
+            self.buffer = PrioritizedReplayBuffer(
+                cfg.buffer_capacity, alpha=cfg.prioritized_replay_alpha,
+                seed=cfg.seed)
+        else:
+            self.buffer = ReplayBuffer(cfg.buffer_capacity, seed=cfg.seed)
+        self.build_learner()
+
+    def build_learner(self):
+        cfg = self.algo_config
+        probe = make_env(cfg.env, cfg.env_config)
+        self.learner = SACLearner(
+            probe.observation_dim, probe.action_dim, probe.action_low,
+            probe.action_high, hidden=cfg.hidden, actor_lr=cfg.actor_lr,
+            critic_lr=cfg.critic_lr, alpha_lr=cfg.alpha_lr,
+            gamma=cfg.gamma, tau=cfg.tau,
+            initial_alpha=cfg.initial_alpha,
+            target_entropy=cfg.target_entropy, seed=cfg.seed,
+            device=cfg.device)
+        self.broadcast_weights(self.learner.get_actor_weights())
+
+    def training_step(self) -> Dict[str, Any]:
+        cfg = self.algo_config
+        refs = [er.sample_transitions.remote(
+            cfg.rollout_fragment_length, cfg.random_warmup_steps,
+            self._steps_sampled) for er in self.env_runners]
+        batch = concat_samples(self._rt.get(refs))
+        self.buffer.add(batch)
+        self._steps_sampled += len(batch)
+        grad_steps = cfg.grad_steps_per_iter or len(batch)
+        metrics: Dict[str, Any] = {}
+        if len(self.buffer) >= cfg.train_batch_size:
+            per = getattr(cfg, "prioritized_replay", False)
+            for _ in range(grad_steps):
+                if per:
+                    sample = self.buffer.sample(
+                        cfg.train_batch_size,
+                        beta=cfg.prioritized_replay_beta)
+                else:
+                    sample = self.buffer.sample(cfg.train_batch_size)
+                m = self.learner.update(sample)
+                if per:
+                    self.buffer.update_priorities(
+                        sample["batch_indexes"],
+                        self.learner.last_td_error + 1e-6)
+            metrics.update(m)
+        self.broadcast_weights(self.learner.get_actor_weights())
+        metrics["num_env_steps_sampled"] = self._steps_sampled
+        metrics["buffer_size"] = len(self.buffer)
+        return metrics
+
+    def save_checkpoint(self):
+        return {"state": self.learner.get_weights(),
+                "iteration": self._iteration}
+
+    def load_checkpoint(self, ckpt):
+        self.learner.set_weights(ckpt["state"])
+        self._iteration = ckpt.get("iteration", 0)
+        self.broadcast_weights(self.learner.get_actor_weights())

@@ -1,5 +1,6 @@
-"""TD3's and DDPG's compute: the port of ``ray_tpu/rllib/algorithms/td3.py``
-(``TD3Learner`` :72).
+"""TD3 and DDPG: the port of ``ray_tpu/rllib/algorithms/td3.py``
+(``TD3Config`` :26, ``DDPGConfig`` :62, ``TD3Learner`` :72, ``TD3`` :193,
+``DDPG`` :259).
 
 Reference parity: rllib/algorithms/td3/td3.py (which extends
 rllib/algorithms/ddpg/ddpg.py — TD3 = DDPG + twin clipped critics,
@@ -17,19 +18,66 @@ also when its scale is 0 (DDPG).
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import torch
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.rllib import sample_batch as sb
-from ray_tpu_torch.rllib.algorithms.sac import (OffPolicyLearner,
+from ray_tpu_torch.rllib.algorithm import AlgorithmConfig
+from ray_tpu_torch.rllib.algorithms.sac import (SAC, OffPolicyLearner,
                                                 StateTree, frozen_copy,
                                                 polyak, transition_columns)
+from ray_tpu_torch.rllib.env import make_env
 from ray_tpu_torch.rllib.models import (det_actor_apply, det_actor_init,
                                         seeded, twin_q_apply, twin_q_init)
 
 DDPG_DEFAULTS = dict(policy_delay=1, target_noise=0.0, target_noise_clip=0.0)
+
+
+class TD3Config(AlgorithmConfig):
+    def __init__(self, algo_class=None):
+        super().__init__(algo_class or TD3)
+        self.env = "Pendulum-v1"
+        self.tau = 0.005
+        self.actor_lr = 1e-3
+        self.critic_lr = 1e-3
+        self.expl_noise = 0.1           # rollout Gaussian noise (of half-range)
+        self.target_noise = 0.2         # target-policy smoothing sigma
+        self.target_noise_clip = 0.5
+        self.policy_delay = 2           # actor updated every N critic steps
+        self.buffer_capacity = 100_000
+        self.random_warmup_steps = 500
+        self.grad_steps_per_iter = 0    # 0 => one per sampled step
+        self.train_batch_size = 256
+        self.rollout_fragment_length = 64
+
+    def training(self, *, tau=None, actor_lr=None, critic_lr=None,
+                 expl_noise=None, target_noise=None, target_noise_clip=None,
+                 policy_delay=None, buffer_capacity=None,
+                 random_warmup_steps=None, grad_steps_per_iter=None,
+                 **kw) -> "TD3Config":
+        super().training(**kw)
+        for name, v in (("tau", tau), ("actor_lr", actor_lr),
+                        ("critic_lr", critic_lr), ("expl_noise", expl_noise),
+                        ("target_noise", target_noise),
+                        ("target_noise_clip", target_noise_clip),
+                        ("policy_delay", policy_delay),
+                        ("buffer_capacity", buffer_capacity),
+                        ("random_warmup_steps", random_warmup_steps),
+                        ("grad_steps_per_iter", grad_steps_per_iter)):
+            if v is not None:
+                setattr(self, name, v)
+        return self
+
+
+class DDPGConfig(TD3Config):
+    """DDPG = TD3 minus its three additions (reference ddpg.py defaults)."""
+
+    def __init__(self, algo_class=None):
+        super().__init__(algo_class or DDPG)
+        for name, v in DDPG_DEFAULTS.items():
+            setattr(self, name, v)
 
 
 class TD3Learner(OffPolicyLearner):
@@ -121,3 +169,31 @@ class TD3Learner(OffPolicyLearner):
         if "steps" in weights:
             self.steps = int(weights.pop("steps"))
         super().set_weights(weights)
+
+
+class TD3(SAC):
+    """SAC's loop (uniform replay) with the deterministic runner policy
+    and ``TD3Learner``."""
+
+    config_class = TD3Config
+
+    def _continuous_runner_kwargs(self) -> Dict[str, Any]:
+        return {"policy": "deterministic",
+                "expl_noise": self.algo_config.expl_noise}
+
+    def build_learner(self):
+        cfg = self.algo_config
+        probe = make_env(cfg.env, cfg.env_config)
+        self.learner = TD3Learner(
+            probe.observation_dim, probe.action_dim, probe.action_low,
+            probe.action_high, hidden=cfg.hidden, actor_lr=cfg.actor_lr,
+            critic_lr=cfg.critic_lr, gamma=cfg.gamma, tau=cfg.tau,
+            target_noise=cfg.target_noise,
+            target_noise_clip=cfg.target_noise_clip,
+            policy_delay=cfg.policy_delay, seed=cfg.seed,
+            device=cfg.device)
+        self.broadcast_weights(self.learner.get_actor_weights())
+
+
+class DDPG(TD3):
+    config_class = DDPGConfig

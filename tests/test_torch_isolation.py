@@ -15,16 +15,20 @@ from ray_tpu_torch.ops import _build
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-# The RLlib slices: the numpy copies, then the ports of JAX code; then the
-# podracer members and serve's _jsonable.
+# The RLlib slices: the numpy copies, then the ports of JAX code, then the
+# orchestration (the algorithms and the in-process runtime); then the
+# podracer members, serve's _jsonable and Tune's Trainable.
 RLLIB_MODULES = ["ray_tpu_torch.rllib." + m for m in (
     "sample_batch", "env", "connectors", "replay_buffer", "models",
     "catalog", "convert", "learner", "algorithms.a2c", "algorithms.pg",
     "env_runner", "algorithms.dqn", "algorithms.c51", "algorithms.qrdqn",
     "algorithms.noisy", "algorithms.r2d2", "offline", "algorithms.sac",
     "algorithms.td3", "algorithms.cql", "algorithms.bc",
-    "algorithms.marwil")] + ["ray_tpu_torch.podracer.runtime",
-                             "ray_tpu_torch.serve.proxy"]
+    "algorithms.marwil", "local_runtime", "algorithm", "algorithms.ppo",
+    "algorithms.impala", "algorithms.appo", "algorithms.apex",
+    "algorithms.es")] + ["ray_tpu_torch.podracer.runtime",
+                         "ray_tpu_torch.serve.proxy",
+                         "ray_tpu_torch.tune.trainable"]
 
 
 def _all_modules():
@@ -42,10 +46,11 @@ def test_package_imports_no_jax_and_no_ray_tpu():
     assert set(RLLIB_MODULES) <= set(mods), set(RLLIB_MODULES) - set(mods)
     code = (
         "import importlib, sys\n"
-        f"for m in {mods!r}:\n"
+        f"for m in {mods + ['chip_smoke']!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'optax', 'ray_tpu'))\n"
+        "tops = {m: m.split('.')[0] for m in sys.modules}\n"
+        "bad = sorted(m for m, t in tops.items() if t.startswith('jax') "
+        "or t in ('optax', 'ray_tpu'))\n"
         "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
@@ -107,6 +112,37 @@ def test_rllib_default_device_raises_without_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build()
     assert PPOLearner(4, 2, device="cpu").device.type == "cpu"
+
+
+def test_algorithms_default_to_the_card(monkeypatch, tmp_path):
+    """Every algorithm of ``ray_tpu_torch.rllib`` built from its config
+    with no device asks for the card, and raises without one;
+    ``resources(device="cpu")`` builds it on the CPU."""
+    import numpy as np
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.rllib import JsonWriter, SampleBatch
+    w = JsonWriter(str(tmp_path))
+    w.write(SampleBatch({"obs": np.zeros((4, 3)), "actions": np.zeros(4),
+                         "rewards": np.zeros(4), "next_obs": np.zeros((4, 3)),
+                         "terminateds": np.zeros(4, bool)}))
+    w.close()
+    names = [n for n in rllib.__all__
+             if n.endswith("Config") and n != "AlgorithmConfig"]
+    assert len(names) == 19, names
+
+    def config(name):
+        cfg = getattr(rllib, name)().env_runners(num_env_runners=1)
+        if hasattr(cfg, "offline_data"):
+            cfg.offline_data(input_path=str(tmp_path))
+        return cfg
+
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        for name in names:
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                config(name).build()
+    algo = config("PPOConfig").resources(device="cpu").build()
+    assert algo.learner.device.type == "cpu"
 
 
 def test_kernels_import_and_cpu_path_need_no_nvcc(monkeypatch):

@@ -90,6 +90,19 @@ Phases, each of which raises on failure:
       the card; iteration ms on the card and on the CPU; for PPO and DQN
       the copies and syncs of one iteration under torch.profiler. No kernel
       of K1-K3 runs here;
+  (p) the main path through the port's Train harness: GPT-2 small at (e)'s
+      widths, batch and optimizer, trained by Trainer(...).fit() with no
+      runtime (a gang of one in this process) on the card, 8 steps with a
+      sharded checkpoint after every second (top 2 kept by loss): run A
+      raises before step 5 and resumes from the checkpoint after step 3
+      (FailureConfig(max_failures=1)), and must equal the uninterrupted run
+      B bit for bit in its final loss and TrainState, with 24/12/12
+      launches in every step, two checkpoints left (the lowest losses) and
+      two attempts; two controls resumed from A's earlier kept checkpoint
+      (Adam's moments and count reset; the step counter one early) must
+      fail that gate. Step ms in the harness, the cost of a report,
+      save_pytree/load_pytree ms and bytes, the restart time and each
+      attempt's peak memory;
   (g) one line {"kernels": [...]} (launches from the main path, e);
   (h) last line {"ok": true, "device": {...}}.
 
@@ -751,11 +764,11 @@ def _profile_step(model, batch, tag="e", label="flash step", top=10,
 
 def phase_train() -> tuple:
     """(e) GPT-2 small, dense, remat full: the main path. -> (launches,
-    flash step 0's (loss, grad_norm))."""
+    flash step 0's (loss, grad_norm), step ms)."""
     from ray_tpu_torch.models import GPTConfig
     res = train_path("e", GPTConfig.gpt2_small(), "gpt2-small")
     _profile_step(res["model"], res["batch"])  # after the counted steps
-    out = res["launches"], res["step0"]
+    out = res["launches"], res["step0"], res["step_ms"]
     del res
     torch.cuda.empty_cache()
     return out
@@ -2179,6 +2192,378 @@ def _algo_summary(result) -> str:
 
 
 # ---------------------------------------------------------------------------
+# (p) the main path through the Train harness
+# ---------------------------------------------------------------------------
+
+# Phase (p)'s loop: GPT-2 small at (e)'s batch, sequence and optimizer, a
+# checkpoint after every second step; run A raises before step 5 in its
+# first attempt and resumes from the checkpoint after step 3.
+HARNESS = dict(steps=8, every=2, fail_at=5, fail_rank=0,
+               batch=MAIN["batch"], seq=MAIN["seq"], cfg={},
+               mesh={"data": 1}, strategy="dp", device=None, control=None)
+HARNESS_REPORTS = 200    # reports of an empty loop: the cost of one report
+
+
+def harness_batch(vocab, batch, seq, k, device):
+    """The batch of step k: tokens drawn from (SEED, k) alone, so that a
+    resumed run trains on the batches the uninterrupted one did."""
+    import numpy as np
+    toks = np.random.default_rng([SEED, k]).integers(0, vocab,
+                                                     (batch, seq + 1))
+    return {"tokens": torch.from_numpy(toks).to(device)}
+
+
+def _harness_log(out, rank, **event) -> None:
+    with open(os.path.join(out, f"rank{rank}.jsonl"), "a") as f:
+        f.write(json.dumps(event) + "\n")
+
+
+def harness_events(out, rank=0) -> list:
+    with open(os.path.join(out, f"rank{rank}.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def harness_loop(config):
+    """A worker's train loop under the port's Trainer (phase (p); the
+    four-card test of tests/test_torch_cuda.py runs it too): GPT-2 small
+    (``config["cfg"]`` overrides fields) through build_mesh(MeshConfig(
+    **config["mesh"])) -> init_train_state(..., config["strategy"]) ->
+    make_train_step, AdamW(3e-4), on ``config["device"]`` (None: the
+    card). It resumes from get_checkpoint() where there is one, restoring
+    the whole TrainState (params, Adam's moments and count, step), and runs
+    to ``config["steps"]``; the batch of step k is harness_batch's. After
+    every ``config["every"]``-th step every rank writes its shards
+    (save_pytree) to one directory of this attempt and reports it as the
+    checkpoint; other steps report without one. In its first attempt rank
+    ``config["fail_rank"]`` raises before step ``config["fail_at"]``
+    (None: never; a marker file beside the log says the raise happened).
+    Each rank appends its events (start, step, save, load, raise, end:
+    pid, card, card UUID, per step loss, grad norm, host-clock ms and
+    K1-K3 launches, save and load ms and bytes, memory) to
+    ``config["out"]``/rank<r>.jsonl, and the final TrainState to
+    ``config["out"]``/final. Controls (``config["control"]``):
+    "reset_moments" restores the params but resets Adam's moments and
+    count; "off_by_one" resumes one step early, training the last
+    checkpointed step's batch again."""
+    from ray_tpu_torch import resolve_device, train
+    from ray_tpu_torch.models import GPTConfig, gpt_init, gpt_loss
+    from ray_tpu_torch.ops.attention import KERNELS
+    from ray_tpu_torch.parallel import MeshConfig, build_mesh
+    from ray_tpu_torch.train import (Checkpoint, adamw, init_train_state,
+                                     load_pytree, make_train_step,
+                                     save_pytree)
+    from ray_tpu_torch.train.train_step import AdamWState, TrainState
+    ctx = train.get_context()
+    rank, world, out = ctx.get_world_rank(), ctx.get_world_size(), \
+        config["out"]
+    dev = resolve_device(config["device"])
+    cuda = dev.type == "cuda"
+    log_path = os.path.join(out, f"rank{rank}.jsonl")
+    attempt = 1 + (sum(e["event"] == "start" for e in harness_events(
+        out, rank)) if os.path.exists(log_path) else 0)
+    card = torch.cuda.current_device() if cuda else -1
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _harness_log(out, rank, event="start", attempt=attempt, pid=os.getpid(),
+                 card=card, uuid=str(getattr(torch.cuda.get_device_properties(
+                     card), "uuid", "")) if cuda else "",
+                 allocated_gb=torch.cuda.memory_allocated() / 1e9
+                 if cuda else 0.0, t=time.time())
+
+    def peak():
+        return torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+
+    cfg = dataclasses.replace(GPTConfig.gpt2_small(), **config["cfg"])
+    mesh = build_mesh(MeshConfig(**config["mesh"]),
+                      devices=None if cuda else ["cpu"] * world)
+    opt = adamw(3e-4)
+    state = init_train_state(lambda: gpt_init(cfg, device=dev), opt, mesh,
+                             config["strategy"])
+    start = 0
+    ckpt = train.get_checkpoint()
+    if ckpt is not None:
+        t0 = time.perf_counter()
+        state = load_pytree(ckpt.path, state=state)
+        if cuda:
+            torch.cuda.synchronize()
+        _harness_log(out, rank, event="load", step=state.step,
+                     ms=1e3 * (time.perf_counter() - t0),
+                     bytes=_dir_bytes(ckpt.path))
+        start = state.step
+        if config["control"] == "reset_moments":
+            o = state.opt_state
+            for t in o.mu + o.nu:
+                t.zero_()
+            state = TrainState(state.params, AdamWState(o.mu, o.nu, 0),
+                               state.step)
+        elif config["control"] == "off_by_one":
+            start -= 1
+    step = make_train_step(gpt_loss, opt, mesh, config["strategy"])
+    for k in range(start, config["steps"]):
+        if (k == config["fail_at"] and rank == config["fail_rank"]
+                and not os.path.exists(config["marker"])):
+            open(config["marker"], "w").close()
+            _harness_log(out, rank, event="raise", step=k, t=time.time(),
+                         peak_gb=peak())
+            raise RuntimeError(f"rank {rank}: injected failure before step "
+                               f"{k}")
+        batch = harness_batch(cfg.vocab_size, config["batch"],
+                              config["seq"], k, dev)
+        before = {n: kern.launches for n, kern in KERNELS.items()}
+        if cuda:
+            torch.cuda.synchronize()
+        t_wall, t0 = time.time(), time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])    # host readback ends the step
+        if cuda:
+            torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = {n: kern.launches - before[n]
+                    for n, kern in KERNELS.items()}
+        _harness_log(out, rank, event="step", attempt=attempt, step=k,
+                     loss=loss, grad_norm=float(m["grad_norm"]), ms=ms,
+                     t=t_wall, launches=launches)
+        metrics = {"step": k, "loss": loss}
+        if (k + 1) % config["every"]:
+            train.report(metrics)
+            continue
+        d = os.path.join(ctx.get_storage_path(), ctx.get_experiment_name(),
+                         f"checkpoint_{k:06d}_{ctx.get_trial_id()}")
+        t0 = time.perf_counter()
+        save_pytree(state, d)
+        _harness_log(out, rank, event="save", step=k,
+                     ms=1e3 * (time.perf_counter() - t0),
+                     bytes=_dir_bytes(d))
+        train.report(metrics, checkpoint=Checkpoint.from_directory(d))
+    _harness_log(out, rank, event="end", attempt=attempt, peak_gb=peak())
+    # The final state, for the gate: retention may have evicted the last
+    # step's checkpoint.
+    save_pytree(state, os.path.join(out, "final"))
+
+
+def _dir_bytes(d) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+
+def _report_loop(config):
+    """An empty loop that reports ``config["n"]`` times: the harness's own
+    cost per report (the driver's poll round trip and bookkeeping)."""
+    from ray_tpu_torch import train
+    t0 = time.perf_counter()
+    for i in range(config["n"]):
+        train.report({"i": i})
+    _harness_log(config["out"], 0, event="reports", n=config["n"],
+                 ms=1e3 * (time.perf_counter() - t0) / config["n"])
+
+
+def harness_fit(root, name, loop=harness_loop, workers=1, failures=0,
+                resume=None, runtime=None, backend=None, **config):
+    """``loop`` through the port's Trainer: ``workers`` workers, one card
+    each (use_gpu unless the backend's platform is "cpu"), top-2
+    checkpoints by the lowest loss, ``failures`` retries, HARNESS's loop
+    config updated by ``config``; the run's directory is root/name. ->
+    (Result, the run's directory)."""
+    from ray_tpu_torch.train import (CheckpointConfig, FailureConfig,
+                                     RunConfig, ScalingConfig, Trainer)
+    out = os.path.join(root, name)
+    os.makedirs(out)
+    config = dict(HARNESS, out=out, marker=os.path.join(out, "fail_once"),
+                  **config)
+    cpu = backend is not None and backend.platform == "cpu"
+    result = Trainer(
+        loop, train_loop_config=config,
+        scaling_config=ScalingConfig(num_workers=workers, use_gpu=not cpu),
+        run_config=RunConfig(
+            name=name, storage_path=root,
+            checkpoint_config=CheckpointConfig(
+                num_to_keep=2, checkpoint_score_attribute="loss",
+                checkpoint_score_order="min"),
+            failure_config=FailureConfig(max_failures=failures)),
+        backend_config=backend, resume_from_checkpoint=resume,
+        runtime=runtime).fit()
+    return result, out
+
+
+def _flat(tree, prefix="") -> dict:
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, f"{prefix}/{k}" if prefix else k))
+    return out
+
+
+def harness_gate(run_dir, ref_dir, ref_state=None) -> tuple:
+    """-> (equal, reading, the reference's (loss, state)): a run's final
+    loss and final TrainState (every leaf: params, Adam's moments and
+    count, step) against the reference run's, bit for bit; both runs'
+    directories. A run whose final loss differs fails without its state
+    being read."""
+    from ray_tpu_torch.train import load_pytree
+
+    def loss(d):
+        return [e["loss"] for e in harness_events(d)
+                if e["event"] == "step"][-1]
+
+    def state(d):
+        return _flat(load_pytree(os.path.join(d, "final")))
+    la = loss(run_dir)
+    lb, b = ref_state or (loss(ref_dir), state(ref_dir))
+    reading = f"final loss {la!r} against {lb!r}"
+    if la != lb:
+        return False, reading + " (states not read)", (lb, b)
+    a = state(run_dir)
+    differ = sorted(set(a) ^ set(b)) + [p for p in a if p in b and not (
+        torch.equal(a[p], b[p]) if isinstance(a[p], torch.Tensor)
+        else a[p] == b[p])]
+    return not differ, (reading + f"; {len(differ)} of {len(b)} TrainState "
+                        f"leaves differ" + (
+                            f" ({', '.join(differ[:3])}"
+                            f"{', ...' if len(differ) > 3 else ''})"
+                            if differ else "")), (lb, b)
+
+
+def phase_harness(e_step_ms) -> None:
+    """(p) the main path through the port's Train harness:
+    Trainer(harness_loop, ScalingConfig(num_workers=1, use_gpu=True),
+    CheckpointConfig(num_to_keep=2, score "loss", "min"), ...).fit() with no
+    runtime (a gang of one in this process, the loop on the worker's
+    train_loop thread) and the device left to its default (the card).
+    Run B trains HARNESS["steps"] steps uninterrupted; run A (the main
+    path: every kernel count set to 0 just before it and read just after)
+    raises before step 5 in its first attempt and, under
+    FailureConfig(max_failures=1), resumes from the checkpoint after step
+    3. Gate: A's final loss and final TrainState equal B's bit for bit;
+    24/12/12 launches of K1-K3 in every step of both attempts; exactly
+    two checkpoint directories left, those of the two lowest losses, with
+    Result.checkpoint the lower; Result.error None and two attempts.
+    Controls that must fail the gate, each resumed through the harness from
+    the earlier of A's two kept checkpoints (after step 5 where the loss
+    falls): Adam's moments and count reset, and the step counter one step
+    early. Printed: step ms in the harness beside
+    (e)'s, the harness's cost per report, save_pytree and load_pytree ms
+    and bytes, the restart time (from the raise to the first step of the
+    second attempt) and each attempt's peak device memory. This phase does
+    not import ray_tpu: the gang of ray_tpu actors across cards runs in
+    tests/test_torch_cuda.py (test_trainer_gang_across_cards_matches_one_card)."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.models.gpt import GPTConfig
+    from ray_tpu_torch.ops.attention import KERNELS
+    t_start = time.perf_counter()
+    n = HARNESS["steps"]
+    root = tempfile.mkdtemp(prefix="chip_smoke_harness_")
+    try:
+        rep, rep_dir = harness_fit(root, "reports", loop=_report_loop,
+                                   n=HARNESS_REPORTS)
+        per_report = harness_events(rep_dir)[-1]["ms"]
+        if len(rep.metrics_dataframe) != HARNESS_REPORTS:
+            raise AssertionError(f"{len(rep.metrics_dataframe)} reports "
+                                 f"reached the driver of {HARNESS_REPORTS}")
+        ref, ref_dir = harness_fit(root, "B", fail_at=None)
+        torch.cuda.empty_cache()
+        for kern in KERNELS.values():
+            kern.launches = 0
+        run, run_dir = harness_fit(root, "A", failures=1)
+        launches = {k: kern.launches for k, kern in KERNELS.items()}
+        torch.cuda.empty_cache()
+        # The controls resume from the earlier kept checkpoint (at most
+        # step 5, so that each trains two steps or more).
+        mid, mid_m = min(run.best_checkpoints, key=lambda cm: cm[1]["step"])
+        ok, reading, ref_state = harness_gate(run_dir, ref_dir)
+        c_gates = {}
+        for control in ("reset_moments", "off_by_one"):
+            c_dir = harness_fit(root, control, fail_at=None, resume=mid,
+                                control=control, every=n + 1)[1]
+            torch.cuda.empty_cache()
+            c_gates[control] = harness_gate(c_dir, ref_dir, ref_state)[:2]
+        del ref_state
+        events = harness_events(run_dir)
+        ref_events = harness_events(ref_dir)
+        kept = sorted(d for d in os.listdir(run_dir)
+                      if d.startswith("checkpoint_"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    steps = [e for e in events if e["event"] == "step"]
+    ref_steps = [e for e in ref_events if e["event"] == "step"]
+    starts = [e for e in events if e["event"] == "start"]
+    raised = next(e for e in events if e["event"] == "raise")
+    ends = [e for e in events if e["event"] == "end"]
+    saves = [e for e in events + ref_events if e["event"] == "save"]
+    loads = [e for e in events if e["event"] == "load"]
+    first2 = next(e for e in steps if e["attempt"] == 2)
+    for e in steps:
+        log(f"[p] A attempt {e['attempt']} step {e['step']}: loss "
+            f"{e['loss']:.5f} grad_norm {e['grad_norm']:.5f} {e['ms']:.1f} ms "
+            f"launches {e['launches']}")
+    for e in ref_steps:
+        log(f"[p] B step {e['step']}: loss {e['loss']:.5f} grad_norm "
+            f"{e['grad_norm']:.5f} {e['ms']:.1f} ms")
+    ms_a = [e["ms"] for e in steps]
+    ms_b = [e["ms"] for e in ref_steps]
+    log(f"[p] step in the harness: B {statistics.median(ms_b[1:]):.1f} ms, A "
+        f"{statistics.median(ms_a[1:]):.1f} ms (host clock, median after the "
+        f"first), beside (e)'s {e_step_ms:.1f} ms")
+    log(f"[p] harness cost per report: {per_report:.3f} ms "
+        f"({HARNESS_REPORTS} reports of an empty loop, in process)")
+    log(f"[p] save_pytree: {statistics.median(e['ms'] for e in saves):.0f} ms "
+        f"median of {len(saves)} ({min(e['ms'] for e in saves):.0f}-"
+        f"{max(e['ms'] for e in saves):.0f}), {saves[0]['bytes'] / 1e9:.2f} "
+        f"GB; load_pytree: {loads[0]['ms']:.0f} ms, "
+        f"{loads[0]['bytes'] / 1e9:.2f} GB (step {loads[0]['step']})")
+    log(f"[p] restart: {first2['t'] - raised['t']:.2f} s from the raise "
+        f"before step {raised['step']} to the first step of attempt 2 (step "
+        f"{first2['step']})")
+    log(f"[p] peak device memory: attempt 1 {raised['peak_gb']:.2f} GB; "
+        f"attempt 2 {ends[-1]['peak_gb']:.2f} GB, "
+        f"{starts[-1]['allocated_gb']:.3f} GB allocated at its start "
+        f"(attempt 1 at its start: {starts[0]['allocated_gb']:.3f} GB)")
+    log(f"[p] launches over run A ({len(steps)} steps in 2 attempts): "
+        f"{launches}")
+    ckpt_losses = sorted((m["loss"], m["step"]) for _, m in
+                         run.best_checkpoints)
+    reported = sorted((r["loss"], r["step"]) for r in run.metrics_dataframe
+                      if (r["step"] + 1) % HARNESS["every"] == 0)
+    log(f"[p] A: error {run.error}, {len(starts)} attempts, "
+        f"{len(run.metrics_dataframe)} reports; checkpoints left {kept}, "
+        f"kept (loss, step) {ckpt_losses} of those reported {reported}, "
+        f"Result.checkpoint {os.path.basename(run.checkpoint.path)}")
+    log(f"[p] gate A vs B: {reading}: {'pass' if ok else 'fail'}")
+    for c, (c_ok, c_reading) in c_gates.items():
+        log(f"[p] gate, control ({c}, resumed from A's checkpoint after step "
+            f"{mid_m['step']}) vs B (must fail): {c_reading}: "
+            f"{'pass' if c_ok else 'fail'}")
+
+    want = _expected_launches(dataclasses.replace(GPTConfig.gpt2_small(),
+                                                  **HARNESS["cfg"]))
+    bad = [e["step"] for e in steps + ref_steps if e["launches"] != want]
+    if bad:
+        raise AssertionError(f"harness steps {bad}: launches differ from "
+                             f"{want}")
+    if launches != {k: v * len(steps) for k, v in want.items()}:
+        raise AssertionError(f"run A launched {launches}")
+    if not ok:
+        raise AssertionError("harness: the resumed run differs from the "
+                             "uninterrupted one")
+    passed = [c for c, (c_ok, _) in c_gates.items() if c_ok]
+    if passed:
+        raise AssertionError(f"harness: the gate passes controls {passed}")
+    best = min(run.best_checkpoints, key=lambda cm: cm[1]["loss"])[0]
+    if (run.error is not None or len(starts) != 2 or len(kept) != 2
+            or ckpt_losses != reported[:2]
+            or run.checkpoint.path != best.path
+            or sorted(os.path.basename(c.path) for c, _ in
+                      run.best_checkpoints) != kept):
+        raise AssertionError("harness: the run's bookkeeping is wrong")
+    if not all(math.isfinite(e["loss"]) for e in steps):
+        raise AssertionError("harness: non-finite loss")
+    log(f"[p] phase (p) took {time.perf_counter() - t_start:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # (f) kernel timing
 # ---------------------------------------------------------------------------
 
@@ -2299,7 +2684,7 @@ def main() -> int:
     phase_build()
     errs = phase_kernels()
     phase_forward()
-    launches, e_step0 = phase_train()
+    launches, e_step0, e_step_ms = phase_train()
     timing = phase_timing()
     phase_moe()
     phase_medium()
@@ -2308,6 +2693,7 @@ def main() -> int:
     phase_rllib()
     phase_offpolicy()
     phase_algorithms()
+    phase_harness(e_step_ms)
     kernels = [dict(name=n, route="cuda", source=SOURCES[n],
                     replaces=REPLACES[n],
                     launches=launches[n], max_abs_err=errs[n],

@@ -20,6 +20,7 @@ gives ``platform="cpu"``.
 
 from __future__ import annotations
 
+import datetime
 import os
 import re
 import socket
@@ -91,15 +92,24 @@ def step_loss(data_axis: int, fsdp_axis: int, device=None,
 
 
 def init_process(rank: int, num_processes: int, coordinator: str,
-                 local_devices: int, platform: str = "cuda") -> None:
+                 local_devices: int, platform: str = "cuda",
+                 timeout: Optional[datetime.timedelta] = None,
+                 store: Optional[dist.Store] = None) -> None:
     """Join this process to the gang: NCCL on the cards (``platform``
-    "cuda"), gloo on the CPU ("cpu")."""
+    "cuda"), gloo on the CPU ("cpu"). ``timeout``: of the rendezvous and
+    of every collective (torch's default where None). ``store``: the
+    gang's rendezvous store, in place of one at ``coordinator``; with it a
+    gang of one forms a group too."""
     _one_device(local_devices)
-    if num_processes > 1:
+    kw = {} if timeout is None else {"timeout": timeout}
+    backend = "gloo" if platform == "cpu" else "nccl"
+    if store is not None:
+        dist.init_process_group(backend, store=store, rank=rank,
+                                world_size=num_processes, **kw)
+    elif num_processes > 1:
         dist.init_process_group(
-            "gloo" if platform == "cpu" else "nccl",
-            init_method=f"tcp://{coordinator}", rank=rank,
-            world_size=num_processes)
+            backend, init_method=f"tcp://{coordinator}", rank=rank,
+            world_size=num_processes, **kw)
 
 
 def free_port() -> int:

@@ -29,7 +29,7 @@ from typing import Any, Callable, Dict, List, Optional, Type
 import numpy as np
 import torch
 
-from ray_tpu_torch.rllib import local_runtime
+from ray_tpu_torch.util import local_runtime
 from ray_tpu_torch.tune.trainable import Trainable
 
 

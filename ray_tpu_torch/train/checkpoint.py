@@ -32,8 +32,9 @@ this rank's part of every leaf into the state's shards; without one it
 returns the tree of whole tensors, or of DTensors where ``shardings`` names
 a placement.
 
-``Checkpoint`` (a directory reference of the runtime) is not copied: the
-port has no use for it.
+``Checkpoint`` (a reference to a directory, which ``report`` hands to the
+driver) and ``new_checkpoint_dir`` are copies of JAX's (``_dict.pkl`` for
+``from_dict``, as JAX writes it).
 """
 
 from __future__ import annotations
@@ -42,6 +43,10 @@ import json
 import math
 import os
 import pickle
+import shutil
+import tempfile
+import uuid
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
@@ -51,6 +56,54 @@ import torch.distributed as dist
 
 from ray_tpu_torch.parallel.sharding import entry_axes, local_params
 from ray_tpu_torch.train.train_step import AdamWState, TrainState
+
+
+class Checkpoint:
+    """A reference to a directory of checkpoint data."""
+
+    def __init__(self, path: str):
+        self.path = os.path.abspath(path)
+
+    @classmethod
+    def from_directory(cls, path: str) -> "Checkpoint":
+        return cls(path)
+
+    @classmethod
+    def from_dict(cls, data: Dict[str, Any]) -> "Checkpoint":
+        d = tempfile.mkdtemp(prefix="ray_tpu_torch_ckpt_")
+        with open(os.path.join(d, "_dict.pkl"), "wb") as f:
+            pickle.dump(data, f)
+        return cls(d)
+
+    def to_dict(self) -> Dict[str, Any]:
+        p = os.path.join(self.path, "_dict.pkl")
+        if not os.path.exists(p):
+            raise ValueError(f"checkpoint at {self.path} has no dict payload")
+        with open(p, "rb") as f:
+            return pickle.load(f)
+
+    def to_directory(self, path: Optional[str] = None) -> str:
+        dst = path or tempfile.mkdtemp(prefix="ray_tpu_torch_ckpt_")
+        if os.path.abspath(dst) != self.path:
+            shutil.copytree(self.path, dst, dirs_exist_ok=True)
+        return dst
+
+    @contextmanager
+    def as_directory(self):
+        yield self.path
+
+    def __repr__(self):
+        return f"Checkpoint({self.path})"
+
+    def __reduce__(self):
+        return (Checkpoint, (self.path,))
+
+
+def new_checkpoint_dir(storage_path: str, run_name: str, step: int) -> str:
+    d = os.path.join(storage_path, run_name,
+                     f"checkpoint_{step:06d}_{uuid.uuid4().hex[:6]}")
+    os.makedirs(d, exist_ok=True)
+    return d
 
 
 @dataclass

@@ -289,6 +289,105 @@ def test_strategies_across_cards_match_one_card(card, tmp_path):
     assert not failures, failures
 
 
+@pytest.mark.cuda
+@pytest.mark.timeout(900)
+def test_trainer_gang_across_cards_matches_one_card(tmp_path, monkeypatch):
+    """The port's Trainer with runtime=ray_tpu on four cards: four ray_tpu
+    actors (ScalingConfig(num_workers=4, use_gpu=True): one accelerator
+    slot each), the NCCL group of CudaBackendConfig, each worker on
+    cuda:<local rank>, running chip_smoke.harness_loop (phase (p)'s loop:
+    GPT-2 small, bf16, batch 8, seq 1024, AdamW(3e-4), a sharded
+    checkpoint after every second step) under MeshConfig(fsdp=4) for 6
+    steps. Held: four distinct pids and cards; 24/12/12 launches of K1-K3
+    per rank and step; rank 0's step 0 within chip_smoke's gate (loss 1e-4,
+    grad norm 2e-3 relative) of the same loop on one card (dp, a world of
+    one, run by the in-process Trainer after the gang); and a run in which
+    rank 2 raises before step 3 restarts the gang from the checkpoint after
+    step 1 and ends with the final loss and TrainState of the uninterrupted
+    four-card run, bit for bit. This process touches CUDA only after the
+    gangs have run: the workers are forked from ray_tpu's fork server, not
+    from here. Prints each rank's step ms, peak memory and the restart
+    time. Needs four cards."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    import statistics
+    import subprocess
+
+    import ray_tpu
+
+    from ray_tpu_torch.ops import _build
+    _build.build_all()          # once here, not in each worker
+    # The runtime's own jax import stays off the cards.
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
+    root = str(tmp_path)
+    cfg = dict(steps=6, every=2, fail_at=3, fail_rank=2, mesh={"fsdp": 4},
+               strategy="fsdp")
+    ray_tpu.init(num_tpus=4)
+    try:
+        gang = dict(workers=4, runtime=ray_tpu)
+        _, ref_dir = chip_smoke.harness_fit(root, "U", **gang,
+                                            **dict(cfg, fail_at=None))
+        run, run_dir = chip_smoke.harness_fit(root, "F", failures=1, **gang,
+                                              **cfg)
+    finally:
+        ray_tpu.shutdown()
+    _, one_dir = chip_smoke.harness_fit(
+        root, "one", **dict(cfg, fail_at=None, steps=4, every=4,
+                            mesh={"data": 1}, strategy="dp"))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    print(f"\n[gang] {len(smi)} cards: {smi}")
+    failures = []
+    want = [24, 12, 12]
+    for tag, d in (("U", ref_dir), ("F", run_dir)):
+        starts = []
+        for r in range(4):
+            ev = chip_smoke.harness_events(d, r)
+            steps = [e for e in ev if e["event"] == "step"]
+            starts += [e for e in ev if e["event"] == "start"]
+            peaks = [round(e["peak_gb"], 2) for e in ev
+                     if e["event"] in ("end", "raise")]
+            print(f"[gang] {tag} rank {r}: losses "
+                  f"{[round(e['loss'], 5) for e in steps]}, step "
+                  f"{statistics.median(e['ms'] for e in steps[1:]):.1f} ms "
+                  f"(median after the first; {[round(e['ms'], 1) for e in steps]}),"
+                  f" peak {peaks} GB")
+            bad = [e["step"] for e in steps
+                   if list(e["launches"].values()) != want]
+            if bad:
+                failures.append(f"{tag} rank {r} launches at steps {bad}")
+        first = [s for s in starts if s["attempt"] == 1]
+        print(f"[gang] {tag} workers: pids {[s['pid'] for s in first]}, "
+              f"cards {[s['card'] for s in first]}, uuids "
+              f"{[s['uuid'][-12:] for s in first]}")
+        for key in ("pid", "card", "uuid"):
+            if len({s[key] for s in first}) != 4:
+                failures.append(f"{tag}: the workers share a {key}")
+    ev2 = chip_smoke.harness_events(run_dir, 2)
+    raised = next(e for e in ev2 if e["event"] == "raise")
+    resumed = next(e for e in ev2 if e["event"] == "step" and
+                   e["attempt"] == 2)
+    print(f"[gang] F: rank 2 raised before step {raised['step']}; restart "
+          f"{resumed['t'] - raised['t']:.2f} s to the first step of attempt 2 "
+          f"(step {resumed['step']}); error {run.error}")
+    one = [e for e in chip_smoke.harness_events(one_dir)
+           if e["event"] == "step"]
+    print(f"[gang] one card (dp): losses {[round(e['loss'], 5) for e in one]},"
+          f" step {statistics.median(e['ms'] for e in one[1:]):.1f} ms")
+    step0 = next(e for e in chip_smoke.harness_events(ref_dir, 0)
+                 if e["event"] == "step")
+    if not chip_smoke._gate("gang", step0["loss"], step0["grad_norm"],
+                            (one[0]["loss"], one[0]["grad_norm"]),
+                            "rank 0 (fsdp=4) vs one card"):
+        failures.append("step 0 differs from one card")
+    ok, reading, _ = chip_smoke.harness_gate(run_dir, ref_dir)
+    print(f"[gang] restarted run vs uninterrupted: {reading}")
+    if not ok or run.error is not None:
+        failures.append(f"restart: {reading}")
+    assert not failures, failures
+
+
 def _restore_whole_on_one_card(runs) -> list:
     """The tp_fsdp checkpoint loaded into a one-card state: every
     parameter against the four ranks' gathered final ones, bit for bit.

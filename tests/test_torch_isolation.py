@@ -31,6 +31,19 @@ RLLIB_MODULES = ["ray_tpu_torch.rllib." + m for m in (
                          "ray_tpu_torch.tune.trainable"]
 
 
+# The Train harness (JaxTrainer's counterpart) and the in-process runtime
+# it shares with RLlib.
+TRAIN_MODULES = ["ray_tpu_torch.train." + m for m in (
+    "config", "session", "worker_group", "backend_executor", "trainer")] + [
+    "ray_tpu_torch.util.local_runtime"]
+TRAIN_NAMES = [
+    "Trainer", "Result", "ScalingConfig", "RunConfig", "CheckpointConfig",
+    "FailureConfig", "Checkpoint", "report", "get_checkpoint", "get_context",
+    "should_checkpoint", "get_dataset_shard", "BackendConfig",
+    "CudaBackendConfig", "BackendExecutor", "WorkerGroup",
+    "TrainingFailedError"]
+
+
 def _all_modules():
     return ["ray_tpu_torch"] + sorted(
         m.name for m in pkgutil.walk_packages(ray_tpu_torch.__path__,
@@ -44,6 +57,7 @@ def test_package_imports_no_jax_and_no_ray_tpu():
     assert "ray_tpu_torch.parallel.mesh" in mods
     assert "ray_tpu_torch.parallel.sharding" in mods
     assert set(RLLIB_MODULES) <= set(mods), set(RLLIB_MODULES) - set(mods)
+    assert set(TRAIN_MODULES) <= set(mods), set(TRAIN_MODULES) - set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods + ['chip_smoke']!r}:\n"
@@ -56,6 +70,25 @@ def test_package_imports_no_jax_and_no_ray_tpu():
     env["PYTHONPATH"] = ROOT
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                    check=True, timeout=120)
+
+
+def test_train_harness_imports_no_jax_and_no_ray_tpu():
+    """The harness's names, imported alone in a fresh process, load no
+    jax*, optax or ray_tpu module."""
+    code = (
+        "import sys\n"
+        f"from ray_tpu_torch.train import {', '.join(TRAIN_NAMES)}\n"
+        f"import {', '.join(TRAIN_MODULES)}\n"
+        "tops = {m.split('.')[0] for m in sys.modules}\n"
+        "bad = sorted(t for t in tops if t.startswith('jax') "
+        "or t in ('optax', 'ray_tpu'))\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                   check=True, timeout=120)
+    from ray_tpu_torch import train
+    assert set(TRAIN_NAMES) <= set(train.__all__)
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

@@ -103,6 +103,21 @@ Phases, each of which raises on failure:
       fail that gate. Step ms in the harness, the cost of a report,
       save_pytree/load_pytree ms and bytes, the restart time and each
       attempt's peak memory;
+  (q) the last entry points, in this process (the script does not import
+      ray_tpu): (q1) PodracerRun at JAX's default widths with no runtime,
+      the learner on the card, 200 ticks beside the same run on the CPU:
+      the standing invariants (ticks contiguous, applied == tick + 1, every
+      batch present, versions monotonic), the first 3 ticks' learner
+      metrics within 1e-4 of the CPU's, a control learner skipping tick 1's
+      update that must fail, ticks/s and env steps/s; (q2) GPT-2 small cut
+      into 4 GPTStages of 3 layers through StagePipeline (channel depth 4,
+      8 microbatches of [2, 1024]), the logits equal bit for bit to the
+      same layers run whole on the card, K1 12 launches a microbatch and
+      K2, K3 none, ms a microbatch and the bytes a hop; (q3) ``python -m
+      ray_tpu_torch rllib train`` (PPO, CartPole-v1, 2 iterations, a
+      checkpoint) and ``evaluate`` on the card and the CPU, as
+      subprocesses, with JAX's lines, and an unknown --algo with JAX's
+      message (in this process); ms an iteration beside (o)'s PPO;
   (g) one line {"kernels": [...]} (launches from the main path, e);
   (h) last line {"ok": true, "device": {...}}.
 
@@ -117,11 +132,13 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -2095,7 +2112,7 @@ def _algo_data(tmp) -> dict:
     return out
 
 
-def phase_algorithms() -> None:
+def phase_algorithms() -> dict:
     """(o) Every algorithm of ray_tpu_torch.rllib built from its config and
     trained through ``build().train()``, the learners and runners on the
     card (device left to its default) and the runners behind the
@@ -2109,7 +2126,8 @@ def phase_algorithms() -> None:
     first), env steps and updates per iteration; for PPO and DQN one more
     iteration under torch.profiler (copies and syncs). This phase does not
     import ray_tpu: the injected runtime (``build(runtime=ray_tpu)``) is
-    exercised by the CPU tests alone."""
+    exercised by the CPU tests alone. -> {label: iteration ms on the
+    card}."""
     import tempfile
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2118,13 +2136,14 @@ def phase_algorithms() -> None:
         "cudnn.allow_tf32 = False")
     with tempfile.TemporaryDirectory() as tmp:
         configs = _algo_configs(_algo_data(tmp))
-        for label, make, iters, loss_key, draws in configs:
-            _algo_one(label, make, iters, loss_key, draws)
+        card_ms = {label: _algo_one(label, make, iters, loss_key, draws)
+                   for label, make, iters, loss_key, draws in configs}
     torch.cuda.empty_cache()
     log(f"[o] phase (o) took {time.perf_counter() - t_start:.1f} s")
+    return card_ms
 
 
-def _algo_one(label, make, iters, loss_key, draws) -> None:
+def _algo_one(label, make, iters, loss_key, draws) -> float:
     # The weights both runs start from: a fresh card algorithm's.
     first = _algo_run(make, 0, CARD)[0]
     ckpt = first.save_checkpoint()
@@ -2183,6 +2202,7 @@ def _algo_one(label, make, iters, loss_key, draws) -> None:
             f"kernels, device {dev_ms:.2f} ms of {host_ms:.1f} ms on the host "
             f"clock (the card idle {100 * (1 - dev_ms / host_ms):.1f}% of it)")
     algo.stop()
+    return statistics.median(card_ms[1:])
 
 
 def _algo_summary(result) -> str:
@@ -2564,6 +2584,309 @@ def phase_harness(e_step_ms) -> None:
 
 
 # ---------------------------------------------------------------------------
+# (q) the last entry points: the podracer handle, GPT stages through
+# StagePipeline, the rllib command line
+# ---------------------------------------------------------------------------
+
+PODRACER_TICKS = 200
+PODRACER_GATED = 3         # ticks whose learner metrics are held to the CPU's
+PODRACER_RTOL = 1e-4       # |card - cpu| <= 1e-4 max(1, |cpu|), per metric
+# GPT-2 small cut into 4 stages of 3 layers; 8 microbatches of [2, 1024].
+STAGES = dict(n=4, microbatches=8, batch=2, seq=1024, channel_depth=4)
+
+
+def podracer_invariants(outs, num_actors) -> list:
+    """tests/test_podracer.py's _assert_invariants over every output: ->
+    the conditions broken (none: [])."""
+    bad = []
+    if [o["tick"] for o in outs] != list(range(outs[0]["tick"],
+                                               outs[0]["tick"] + len(outs))):
+        bad.append("ticks not contiguous")
+    if any(o["applied"] != o["tick"] + 1 for o in outs):
+        bad.append("applied != tick + 1")
+    if any(o["tick_skew"] or o["num_batches"] != num_actors for o in outs):
+        bad.append("a batch missing or misaligned")
+    for i in range(num_actors):
+        seq = [o["versions"][i] for o in outs]
+        if any(b < a for a, b in zip(seq, seq[1:])):
+            bad.append(f"actor {i}'s versions regress")
+    return bad
+
+
+def _podracer_skipping_tick1():
+    """A learner whose tick-1 update is skipped: it reports tick 0's
+    metrics and leaves the weights as they were (the control)."""
+    from ray_tpu_torch.podracer import runtime as prt
+
+    class SkipTick1(prt._Learner):
+        def learn(self, *batches):
+            if batches[0]["tick"] != 1:
+                out = super().learn(*batches)
+                self._last = dict(out["metrics"])
+                return out
+            update = self._learner.update
+            self._learner.update = lambda *a, **k: dict(self._last)
+            try:
+                return super().learn(*batches)
+            finally:
+                self._learner.update = update
+    return SkipTick1
+
+
+def _podracer_run(device, ticks, learner=None) -> dict:
+    """PodracerRun(PodracerConfig(device=device)) in this process (no
+    runtime), ``ticks`` ticks with a window of 1."""
+    from ray_tpu_torch.models.convert import flatten
+    from ray_tpu_torch.podracer import PodracerConfig, PodracerRun
+    from ray_tpu_torch.podracer import runtime as prt
+    with _patched(prt, "_Learner", learner or prt._Learner):
+        run = PodracerRun(PodracerConfig(device=device))
+    try:
+        w0 = flatten(run._weights)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = run.run(ticks, window=1)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        stats = run.stats()
+    finally:
+        run.teardown()
+    return dict(outs=outs, seconds=seconds, w0=w0, stats=stats,
+                steps=sum(o["steps"] for o in outs))
+
+
+def _podracer_gate(card, cpu) -> tuple:
+    """-> (passed, reading): the first PODRACER_GATED ticks' learner
+    metrics within PODRACER_RTOL of the CPU run's."""
+    worst = 0.0
+    for a, b in zip(card["outs"][:PODRACER_GATED],
+                    cpu["outs"][:PODRACER_GATED]):
+        if sorted(a["metrics"]) != sorted(b["metrics"]):
+            return False, "metric names differ"
+        for k, v in b["metrics"].items():
+            d = abs(a["metrics"][k] - v) / max(1.0, abs(v))
+            worst = max(worst, d if math.isfinite(d) else math.inf)
+    return worst <= PODRACER_RTOL, (
+        f"first {PODRACER_GATED} ticks' metrics within {worst:.2e} of the "
+        f"CPU's (tol {PODRACER_RTOL:.0e})")
+
+
+def phase_podracer() -> None:
+    """(q1) PodracerRun at JAX's default widths (CartPole-v1, 2 gangs of 1
+    actor, 1 env, fragment 16, hidden 32x32, minibatch 64) in this process
+    (no runtime), the learner on the card, the actors' policy on the CPU:
+    PODRACER_TICKS ticks beside the same run with device="cpu". Gates: the
+    standing invariants over every tick of both runs, both runs from the
+    same bootstrap weights, and the first ticks' learner metrics within
+    PODRACER_RTOL of the CPU run's (TF32 off, phase a); a learner that
+    skips tick 1's update must fail the metrics gate."""
+    card = _podracer_run(None, PODRACER_TICKS)
+    cpu = _podracer_run("cpu", PODRACER_TICKS)
+    for label, r in (("card", card), ("CPU", cpu)):
+        bad = podracer_invariants(r["outs"], 2)
+        if bad or r["stats"]["ticks"] != PODRACER_TICKS:
+            raise AssertionError(f"podracer on the {label}: {bad}")
+    same_w0 = sorted(card["w0"]) == sorted(cpu["w0"]) and all(
+        np.array_equal(card["w0"][k], cpu["w0"][k]) for k in cpu["w0"])
+    ok, reading = _podracer_gate(card, cpu)
+    same_rewards = [a["rewards"] == b["rewards"] for a, b in
+                    zip(card["outs"][:PODRACER_GATED],
+                        cpu["outs"][:PODRACER_GATED])]
+    log(f"[q1] gate podracer: invariants hold over {PODRACER_TICKS} ticks "
+        f"(card and CPU); bootstrap weights equal: {same_w0}; {reading}; "
+        f"rewards of the gated ticks equal: {same_rewards}: "
+        f"{'pass' if ok and same_w0 else 'fail'}")
+    if not (ok and same_w0):
+        raise AssertionError("podracer: the card run failed the gate")
+    control = _podracer_run(None, PODRACER_GATED, _podracer_skipping_tick1())
+    c_ok, c_reading = _podracer_gate(control, cpu)
+    log(f"[q1] gate podracer, control, tick 1's update skipped (must fail): "
+        f"{c_reading}: {'pass' if c_ok else 'fail'}")
+    if c_ok:
+        raise AssertionError("podracer: the control passed the gate")
+    for label, r in (("card", card), ("CPU", cpu)):
+        log(f"[q1] podracer, learner on the {label}: {PODRACER_TICKS} ticks "
+            f"in {r['seconds']:.3f} s: {PODRACER_TICKS / r['seconds']:.1f} "
+            f"ticks/s, {r['steps'] / r['seconds']:.0f} env steps/s (host "
+            f"clock); final version {r['stats']['weight_version']}, "
+            f"episode_reward_mean {r['stats']['episode_reward_mean']:.2f}")
+
+
+def stage_setup(seed=SEED):
+    """GPT-2 small (bf16, seed-0 weights drawn on the CPU, so that a
+    caller that starts actors has not touched CUDA) in the stacked layout,
+    and STAGES' microbatches of token ids: -> (cfg, {name: tensor},
+    [token arrays])."""
+    from ray_tpu_torch.models.gpt import GPTConfig, gpt_init
+    from ray_tpu_torch.parallel.pipeline import gpt_params_to_pp
+    cfg = GPTConfig.gpt2_small()
+    gen = torch.Generator().manual_seed(seed)
+    pp = dict(gpt_params_to_pp(gpt_init(cfg, device="cpu", generator=gen))
+              .named_parameters())
+    rng = np.random.RandomState(seed)
+    toks = [rng.randint(0, cfg.vocab_size, (STAGES["batch"], STAGES["seq"]))
+            .astype(np.int64) for _ in range(STAGES["microbatches"])]
+    return cfg, {k: v.detach() for k, v in pp.items()}, toks
+
+
+def stage_gate(outs, whole) -> list:
+    """The microbatches whose logits differ from the whole run's in any
+    bit (hops of bf16 bits: equal arrays)."""
+    return [i for i, (a, b) in enumerate(zip(outs, whole))
+            if a[1] != b[1] or not np.array_equal(a[0], b[0])]
+
+
+def phase_stages() -> None:
+    """(q2) GPT-2 small cut into STAGES["n"] GPTStages of 3 layers (stage 0
+    embeds, the last applies the final norm and the head), all on the card
+    in this process behind the in-process runtime, through StagePipeline's
+    run with channel_depth 4: STAGES["microbatches"] microbatches of [2,
+    1024]. Each hop crosses as host bf16 bits (to_hop). Gates: every
+    microbatch's logits equal, bit for bit, those of one GPTStage holding
+    all 12 layers on the card (the same layers run whole); K1 launched 12
+    times a microbatch, K2 and K3 never. Prints ms a microbatch beside the
+    whole run's, and the bytes a hop."""
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.parallel.pipeline import (GPTStage, StagePipeline,
+                                                 stage_params, to_hop)
+    from ray_tpu_torch.util import local_runtime
+    cfg, pp, toks = stage_setup()
+    n, m = STAGES["n"], STAGES["microbatches"]
+    stages = [local_runtime.remote(GPTStage).remote(
+        cfg, stage_params(pp, n, i), first=i == 0, last=i == n - 1)
+        for i in range(n)]
+    whole = GPTStage(cfg, stage_params(pp, 1, 0), first=True, last=True)
+    saved = {k: kern.launches for k, kern in A.KERNELS.items()}
+    with StagePipeline(stages, method="apply",
+                       channel_depth=STAGES["channel_depth"]) as pipe:
+        pipe.run(toks[:1])                  # warm-up: cuBLAS, the kernels
+        for kern in A.KERNELS.values():
+            kern.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = pipe.run(toks)
+        torch.cuda.synchronize()
+        pipe_ms = 1e3 * (time.perf_counter() - t0) / m
+        launches = {k: kern.launches for k, kern in A.KERNELS.items()}
+        stats = pipe.stats()
+    t0 = time.perf_counter()
+    ref = [whole.apply(t) for t in toks]
+    torch.cuda.synchronize()
+    whole_ms = 1e3 * (time.perf_counter() - t0) / m
+    for k, v in saved.items():
+        A.KERNELS[k].launches = v      # (g) reports the main path's (e)
+    hop = to_hop(torch.zeros(STAGES["batch"], STAGES["seq"], cfg.d_model,
+                             dtype=cfg.dtype))
+    differ = stage_gate(outs, ref)
+    want = {"flash_fwd": cfg.n_layers * m, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
+    log(f"[q2] gate stages: {m} microbatches through {n} stages, logits "
+        f"{list(outs[0][0].shape)} ({outs[0][1]} bits) equal to the whole "
+        f"run's bit for bit except microbatches {differ or 'none'}; "
+        f"launches {launches} (want {want}); DAG {stats['ticks']} ticks, "
+        f"state {stats['state']}: "
+        f"{'pass' if not differ and launches == want else 'fail'}")
+    if differ or launches != want:
+        raise AssertionError("stages: the gate failed")
+    log(f"[q2] stages: {pipe_ms:.2f} ms a microbatch through the pipeline, "
+        f"{whole_ms:.2f} ms run whole (host clock, {m} microbatches of "
+        f"{STAGES['batch']}x{STAGES['seq']}); a hop {hop[0].nbytes} bytes "
+        f"(bf16 activations as int16 bits), the logits "
+        f"{outs[0][0].nbytes} bytes (in process: no channel, a host copy "
+        f"each way)")
+    del stages, whole, outs, ref
+    torch.cuda.empty_cache()
+
+
+_CLI_TRAIN = re.compile(r"iter (\d+): reward_mean=\S+ episodes=\d+")
+
+
+def _cli(args, tmp) -> subprocess.Popen:
+    """Start ``python -m ray_tpu_torch`` with ``args``, this checkout on
+    its path; ``_cli_lines`` reads it."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    p = subprocess.Popen([sys.executable, "-m", "ray_tpu_torch", *args],
+                         cwd=tmp, env=dict(os.environ, PYTHONPATH=root),
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+    p.t0 = time.perf_counter()
+    return p
+
+
+def _cli_lines(p) -> tuple:
+    """-> (exit code, [(seconds since the start, line)])."""
+    lines = [(time.perf_counter() - p.t0, line.rstrip("\n"))
+             for line in p.stdout]
+    return p.wait(timeout=300), lines
+
+
+def phase_cli(ppo_ms) -> None:
+    """(q3) The rllib command line as a user runs it, ``python -m
+    ray_tpu_torch rllib``: train PPO on CartPole-v1 for 2 iterations with a
+    checkpoint, on the card (the default), then evaluate that checkpoint on
+    the card and on the CPU (--device cpu: the state loads onto another
+    device), the two at once. Gates: exit 0 and JAX's lines; an unknown
+    --algo exits with JAX's message (the command called in this process:
+    it exits before anything is built). Prints ms an iteration (between
+    the two iteration lines) beside phase (o)'s PPO iteration."""
+    import tempfile
+
+    from ray_tpu_torch.scripts.cli import build_parser
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ppo.ckpt")
+        rc, train = _cli_lines(_cli(
+            ["rllib", "train", "--algo", "PPO", "--env", "CartPole-v1",
+             "--stop-iters", "2", "--checkpoint-path", ckpt], tmp))
+        iters = [(t, line) for t, line in train if _CLI_TRAIN.fullmatch(line)]
+        text = [line for _, line in train]
+        ok = (rc == 0 and [_CLI_TRAIN.fullmatch(line).group(1)
+                           for _, line in iters] == ["1", "2"]
+              and any(line.startswith("best reward_mean: ") for line in text)
+              and f"checkpoint written to {ckpt}" in text)
+        runs = {d or "card": _cli(["rllib", "evaluate", "--algo", "PPO",
+                                   "--env", "CartPole-v1", "--checkpoint-path",
+                                   ckpt] + (["--device", d] if d else []), tmp)
+                for d in (None, "cpu")}
+        evals = {}
+        for where, p in runs.items():
+            rc_e, out = _cli_lines(p)
+            evals[where] = [line for _, line in out
+                            if line.startswith("mean_return=")]
+            ok = ok and rc_e == 0 and re.fullmatch(
+                r"mean_return=\d+\.\d\d over 5 episodes",
+                (evals[where] or [""])[-1]) is not None
+    args = build_parser().parse_args(["rllib", "train", "--algo", "Nope"])
+    try:
+        args.fn(args)
+        unknown = None
+    except SystemExit as e:
+        unknown = str(e.code)
+    ok = ok and unknown == (
+        "error: unknown algorithm 'Nope'; see ray_tpu_torch.rllib.__all__ "
+        "for available *Config classes")
+    log(f"[q3] cli train: exit {rc}, {[line for _, line in iters]} + "
+        f"{[x for x in text if x.startswith(('best', 'checkpoint'))]}; "
+        f"evaluate {evals}; unknown algo: {unknown!r}: "
+        f"{'pass' if ok else 'fail'}")
+    if not ok:
+        raise AssertionError(f"cli: {train} {evals} {unknown}")
+    iter_ms = 1e3 * (iters[1][0] - iters[0][0])
+    log(f"[q3] cli: iteration 2 took {iter_ms:.1f} ms (between the two "
+        f"iteration lines, host clock) beside phase (o)'s PPO iteration "
+        f"{ppo_ms:.1f} ms; the train command {train[-1][0]:.1f} s in all")
+
+
+def phase_entry_points(ppo_ms) -> None:
+    """(q) The last entry points, each gated (q1-q3)."""
+    t = [time.perf_counter()]
+    for part in (phase_podracer, phase_stages, lambda: phase_cli(ppo_ms)):
+        part()
+        t.append(time.perf_counter())
+    log(f"[q] phase (q) took {t[-1] - t[0]:.1f} s (q1 {t[1] - t[0]:.1f}, "
+        f"q2 {t[2] - t[1]:.1f}, q3 {t[3] - t[2]:.1f})")
+
+
+# ---------------------------------------------------------------------------
 # (f) kernel timing
 # ---------------------------------------------------------------------------
 
@@ -2692,14 +3015,17 @@ def main() -> int:
     phase_pipeline()
     phase_rllib()
     phase_offpolicy()
-    phase_algorithms()
+    algo_ms = phase_algorithms()
     phase_harness(e_step_ms)
+    phase_entry_points(algo_ms["PPO"])
     kernels = [dict(name=n, route="cuda", source=SOURCES[n],
                     replaces=REPLACES[n],
                     launches=launches[n], max_abs_err=errs[n],
                     library=LIBRARY_CALLS[n], **timing[n])
                for n in REPLACES]
-    log(f"[g] total {time.perf_counter() - t_start:.1f} s on {dev['smi']}")
+    log(f"[g] total {time.perf_counter() - t_start:.1f} s on {dev['smi']} "
+        f"(the script before phase (q): 327.4 s on an NVIDIA H100 80GB "
+        f"HBM3 at 700.00 W, PERF.md run H2)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}),

@@ -12,13 +12,14 @@ Entry points run on the card unless the caller asks for the CPU:
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
 
 __version__ = "0.1.0"
 
-__all__ = ["__version__", "resolve_device"]
+__all__ = ["__version__", "resolve_device", "device_where"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -32,3 +33,11 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "ray_tpu_torch: CUDA is not available; pass device='cpu' to run "
             "the plain PyTorch path on the CPU")
     return dev
+
+
+def device_where(device: torch.device) -> dict:
+    """Where a computation on ``device`` runs: this process's pid, the
+    device, and the card's UUID (None off the card)."""
+    uuid = (str(torch.cuda.get_device_properties(device).uuid)
+            if device.type == "cuda" else None)
+    return {"pid": os.getpid(), "device": str(device), "uuid": uuid}

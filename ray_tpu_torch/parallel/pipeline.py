@@ -40,13 +40,18 @@ is recomputed whole, whatever ``remat_policy`` says, as in JAX. Tensor
 parallelism inside a stage uses the Megatron pair ``copy_to`` /
 ``reduce_from`` where JAX uses ``psum`` over 'tensor'.
 
-``StagePipeline`` (actor stages over compiled-DAG channels) is runtime,
-not ported.
+``StagePipeline`` is the MPMD route (JAX's :256): a linear chain of actor
+stages compiled onto the runtime's channels, each stage its own program.
+``GPTStage`` is such a stage of the GPT, built from ``StackedGPT``'s layers
+(``stage_params`` cuts the stacked weights into stages); activations cross
+between stages as host arrays (``to_hop`` / ``from_hop``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Sequence, Tuple
+import copy
+from collections import deque
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -55,6 +60,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ray_tpu_torch import device_where, resolve_device
 from ray_tpu_torch.models import convert
 from ray_tpu_torch.models.gpt import GPT, GPTConfig, _rmsnorm, _rope, gpt_init
 from ray_tpu_torch.ops.attention import flash_attention, mha_reference
@@ -343,3 +349,194 @@ def make_gpt_pp_loss(cfg: GPTConfig, mesh: Mesh,
     splits over 'data'; each data shard's rows must divide into
     ``num_microbatches``."""
     return PipelineLoss(cfg, mesh, num_microbatches)
+
+
+# ---------------------------------------------------------------------------
+# MPMD stage pipelines over the runtime's compiled-DAG channels
+# ---------------------------------------------------------------------------
+
+
+class StagePipeline:
+    """A linear chain of actor stages compiled onto reusable channels:
+    ``ray_tpu/parallel/pipeline.py``'s ``StagePipeline``.
+
+    ``stages`` are live actor handles of ``runtime``; each tick flows the
+    input through ``stage[0].method -> stage[1].method -> ...``, one
+    channel write per hop. ``channel_depth`` microbatches can be in
+    flight at once, and backpressure from the slowest stage bounds memory.
+
+    ``runtime``: ``ray_tpu`` (after ``ray_tpu.init()`` and ``import
+    ray_tpu.dag.compiled``), whose ``CompiledDAG`` runs the chain over shm
+    channels with in-place recovery under ``tick_replay``; or None, and
+    ``util.local_runtime``'s DAG runs the chain in this process (stages
+    made with ``local_runtime.remote(cls).remote(...)``), each tick at
+    submission.
+
+    Usage::
+
+        pipe = StagePipeline([s0, s1, s2], method="apply", channel_depth=4,
+                             runtime=ray_tpu)
+        outs = pipe.run(microbatches)      # pipelined map, order-preserving
+        pipe.teardown()                    # or `with StagePipeline(...)`
+    """
+
+    def __init__(self, stages, method: str = "__call__", *,
+                 channel_depth: int = 4, max_message_size: int = 1 << 20,
+                 tick_replay: bool = True, runtime=None):
+        """tick_replay=True (default) arms the compiled DAG's in-place
+        recovery: a stage actor dying mid-stream is restarted (give the
+        stages ``max_restarts``), and every unacknowledged microbatch is
+        replayed exactly once. tick_replay=False keeps the typed fail-fast
+        ``DagExecutionError``."""
+        from ray_tpu_torch.train.worker_group import required_attr
+        from ray_tpu_torch.util import local_runtime
+        if not stages:
+            raise ValueError("StagePipeline needs at least one stage")
+        rt = local_runtime if runtime is None else runtime
+        input_node = required_attr(rt, "dag.InputNode", "ray_tpu.dag")
+        compiled = required_attr(rt, "dag.compiled.CompiledDAG",
+                                 "ray_tpu.dag.compiled")
+        with input_node() as inp:
+            node = inp
+            for handle in stages:
+                node = getattr(handle, method).bind(node)
+        self.n_stages = len(stages)
+        self.channel_depth = channel_depth
+        self._in_process = rt is local_runtime
+        self._dag = compiled.compile(
+            node, channel_depth=channel_depth,
+            max_message_size=max_message_size, tick_replay=tick_replay)
+
+    def submit(self, value):
+        """Inject one microbatch; returns a ref. The input write blocks
+        once ``channel_depth`` ticks are in flight: a single-threaded
+        caller collects at least every ``channel_depth`` submissions
+        (``run`` does the windowing)."""
+        return self._dag.execute_async(value)
+
+    def run(self, inputs, timeout: Optional[float] = None) -> list:
+        """Pipelined map over ``inputs``, outputs in input order, with at
+        most ``channel_depth`` ticks uncollected. Over a runtime each
+        output is copied as it arrives: an output above a channel slot
+        reaches the caller as a view of object-store memory, which the
+        store reuses once the last stage lets the object go (ROADMAP
+        R-11), and ``run`` returns them all at the end."""
+        pending: deque = deque()
+        out = []
+
+        def collect():
+            value = pending.popleft().result(timeout)
+            out.append(value if self._in_process else copy.deepcopy(value))
+
+        for x in inputs:
+            if len(pending) >= self.channel_depth:
+                collect()
+            pending.append(self.submit(x))
+        while pending:
+            collect()
+        return out
+
+    def stats(self) -> dict:
+        return self._dag.stats()
+
+    def teardown(self):
+        self._dag.teardown()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.teardown()
+        return False
+
+
+def to_hop(t: torch.Tensor) -> tuple:
+    """An activation as it crosses a channel: (host array, dtype name).
+    numpy has no bf16, so a bf16 tensor travels as its bits (int16)."""
+    t = t.detach().contiguous().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy(), "bfloat16"
+    return t.numpy(), str(t.dtype).replace("torch.", "")
+
+
+def from_hop(hop: tuple, device) -> torch.Tensor:
+    """``to_hop``'s inverse, bit for bit, on ``device``."""
+    arr, dtype = hop
+    if not arr.flags.writeable:        # a zero-copy view of a channel slot
+        arr = arr.copy()
+    t = torch.from_numpy(arr)
+    if dtype == "bfloat16":
+        t = t.view(torch.bfloat16)
+    return t.to(device)
+
+
+def stage_params(pp_params: Mapping[str, Any], n_stages: int,
+                 index: int) -> Dict[str, Any]:
+    """Stage ``index`` of ``n_stages``'s weights from a flat stacked-layout
+    dict (``gpt_params_to_pp``, flattened): its L/S layers of every
+    ``stacked.*`` weight; the embedding on the first stage; the final norm
+    and the head (or the tied embedding) on the last."""
+    n_layers = len(pp_params["stacked.ln1.scale"])
+    if n_layers % n_stages:
+        raise ValueError(f"n_layers={n_layers} not divisible by "
+                         f"{n_stages} stages")
+    per = n_layers // n_stages
+    out = {k: v[index * per:(index + 1) * per]
+           for k, v in pp_params.items() if k.startswith("stacked.")}
+    first, last = index == 0, index == n_stages - 1
+    for k, v in pp_params.items():
+        if ((k == "embed.table" and (first or (last and "lm_head" not in
+                                                pp_params)))
+                or (last and k in ("final_norm.scale", "lm_head"))):
+            out[k] = v
+    return out
+
+
+class GPTStage:
+    """One stage of the GPT as an MPMD pipeline stage: a ``StackedGPT`` of
+    this stage's weights (``stage_params``) on ``device`` (None: the card).
+    ``apply`` takes the token ids [B, S] on the ``first`` stage, else
+    the hop of the stage before, runs the layers (``_layer``, no tensor
+    parallelism) and returns the hop of its output: the residual stream,
+    or on the last stage the logits [B, S, vocab] in ``cfg.dtype``. The
+    weights are fp32 masters, cast to ``cfg.dtype`` per layer as the
+    pipeline loss casts them."""
+
+    def __init__(self, cfg: GPTConfig, params: Mapping[str, Any], *,
+                 first: bool, last: bool, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.first, self.last = first, last
+        tensors = {k: (v.detach() if torch.is_tensor(v)
+                       else torch.from_numpy(np.array(v))).to(
+                           self.device, torch.float32, copy=True)
+                   for k, v in params.items()}
+        self.model = StackedGPT(cfg, tensors)
+        self.model.requires_grad_(False)
+        self._layers = list(zip(*[
+            self.model.get_parameter("stacked." + n).unbind(0)
+            for n in _LAYER]))
+
+    @torch.no_grad()
+    def apply(self, x):
+        cfg = self.cfg
+        if self.first:
+            tokens = torch.as_tensor(np.asarray(x), device=self.device)
+            h = self.model.embed.table.to(cfg.dtype)[tokens]
+        else:
+            h = from_hop(x, self.device)
+        b, s, _ = h.shape
+        positions = torch.arange(s, device=self.device)[None, :].expand(b, s)
+        for weights in self._layers:
+            h = _layer(h, positions, cfg, None, *weights)
+        if self.last:
+            h = _rmsnorm(h, self.model.final_norm.scale, cfg.rmsnorm_eps)
+            if cfg.tie_embeddings:
+                h = h @ self.model.embed.table.to(cfg.dtype).t()
+            else:
+                h = h @ self.model.lm_head.to(cfg.dtype)
+        return to_hop(h)
+
+    def where(self) -> dict:
+        """This stage's process, device and card (UUID, or None)."""
+        return device_where(self.device)

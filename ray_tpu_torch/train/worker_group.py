@@ -69,6 +69,16 @@ def runtime_attr(runtime, path: str):
     return obj
 
 
+def required_attr(runtime, path: str, module: str):
+    """``runtime``'s attribute at ``path``, which importing ``module``
+    makes reachable; raise if it is missing."""
+    obj = runtime_attr(runtime, path)
+    if obj is None:
+        raise AttributeError(f"the runtime has no {path}: import {module} "
+                             "before handing the runtime in")
+    return obj
+
+
 def bind_card(index: Optional[int]) -> None:
     """Make ``cuda:<index>`` this process's card (None: the CPU)."""
     _process()._card = index

@@ -16,7 +16,13 @@ JAX). This module is that surface in one process:
 - ``get`` unwraps refs;
 - ``wait(refs, num_returns)`` returns the first ``num_returns`` refs in
   submission order;
-- ``kill`` is a no-op.
+- ``kill`` is a no-op;
+- ``dag.InputNode`` and ``dag.compiled.CompiledDAG`` (the attribute paths of
+  ``ray_tpu.dag``): ``handle.method.bind(node, ...)`` chains member calls
+  onto an input, and ``CompiledDAG.compile(root).execute_async(value)``
+  runs the whole chain at once and returns a finished ref, with
+  ``stats()`` and ``teardown()``. That is a compiled DAG of depth 1: no
+  tick is ever in flight behind another, and none is replayed.
 
 Running each call at submission keeps the order an actor would see: a
 re-dispatched ``sample`` (IMPALA, APPO) runs with the weights the runner
@@ -32,6 +38,7 @@ its device.
 from __future__ import annotations
 
 import itertools
+import types
 from typing import Any, List, Optional, Sequence, Tuple
 
 _order = itertools.count()
@@ -51,7 +58,7 @@ class LocalRef:
         except Exception as e:  # raised by get, as an actor's error is
             self._error = e
 
-    def result(self):
+    def result(self, timeout: Optional[float] = None):
         if self._error is not None:
             raise self._error
         return self._value
@@ -65,6 +72,9 @@ class _Method:
 
     def remote(self, *args, **kwargs) -> LocalRef:
         return LocalRef(self._fn, args, kwargs)
+
+    def bind(self, *args) -> "_Bound":
+        return _Bound(self._fn, args)
 
 
 class LocalActor:
@@ -114,3 +124,78 @@ def wait(refs: Sequence[LocalRef], num_returns: int = 1,
 
 def kill(_actor: Any) -> None:
     pass
+
+
+class InputNode:
+    """The input of a chain of bound calls: ``with InputNode() as inp:``."""
+
+    def __enter__(self) -> "InputNode":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+class _Bound:
+    """A member call bound to its arguments: bound calls, the input, or
+    values."""
+
+    __slots__ = ("fn", "args")
+
+    def __init__(self, fn, args):
+        self.fn, self.args = fn, args
+
+
+class CompiledDAG:
+    """A chain of bound calls run in this process (module doc): each
+    ``execute_async`` runs every call of the chain, arguments first in
+    order, each call once, and returns a finished ``LocalRef``."""
+
+    def __init__(self, root: _Bound):
+        self._root = root
+        self._next_seq = 0
+        self.ticks = 0
+        self._state = "local"
+
+    @classmethod
+    def compile(cls, root: _Bound, **_options) -> "CompiledDAG":
+        """Channel and recovery options mean nothing in one process and are
+        accepted as ``ray_tpu``'s ``CompiledDAG.compile`` takes them."""
+        return cls(root)
+
+    def execute_async(self, value) -> LocalRef:
+        if self._state == "torn_down":
+            raise RuntimeError("the DAG is torn down")
+        self._next_seq += 1
+        ref = LocalRef(self._run, (value,), {})
+        if ref._error is None:
+            self.ticks += 1
+        return ref
+
+    def _run(self, value):
+        done = {}
+
+        def ev(node):
+            if isinstance(node, InputNode):
+                return value
+            if not isinstance(node, _Bound):
+                return node
+            if id(node) not in done:
+                done[id(node)] = node.fn(*[ev(a) for a in node.args])
+            return done[id(node)]
+
+        return ev(self._root)
+
+    def stats(self) -> dict:
+        return {"ticks": self.ticks, "inflight": 0,
+                "max_inflight": min(self.ticks, 1), "state": self._state,
+                "tick_replay": False, "recoveries": 0, "replayed_ticks": 0}
+
+    def teardown(self) -> None:
+        self._state = "torn_down"
+
+
+# The attribute paths of ray_tpu.dag that the port's DAG users read.
+dag = types.SimpleNamespace(
+    InputNode=InputNode,
+    compiled=types.SimpleNamespace(CompiledDAG=CompiledDAG))

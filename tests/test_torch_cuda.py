@@ -457,3 +457,159 @@ def test_rl_learner_first_update_matches_cpu(card, name):
         "cuda", name, make(None), make, batch, loss_key, lr,
         noisy=noisy)[0]
     assert all(np.isfinite(v) for v in metrics.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.timeout(600)
+def test_podracer_run_actors_on_card_machine(monkeypatch):
+    """PodracerRun(PodracerConfig(), runtime=ray_tpu) at JAX's default
+    widths: the learner a ray_tpu actor on the card (one accelerator slot),
+    the two rollout actors on CPUs, a tick_replay compiled DAG between
+    them. chip_smoke.PODRACER_TICKS ticks after 5 of warm-up, pipelined
+    to the channel depth: the standing invariants over every tick, no
+    recovery. This process touches CUDA only after the actors have run;
+    then the same config in process (chip_smoke's q1) for ticks/s beside
+    it. Prints each member's pid, device and card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import os
+    import subprocess
+    import time
+
+    import ray_tpu
+    import ray_tpu._private.object_plane  # noqa: F401
+    import ray_tpu.dag.compiled  # noqa: F401
+    import ray_tpu.util.scheduling_strategies  # noqa: F401
+
+    from ray_tpu_torch.podracer import PodracerConfig, PodracerRun
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
+    ticks = chip_smoke.PODRACER_TICKS
+    ray_tpu.init(num_cpus=4, num_tpus=1)
+    try:
+        run = PodracerRun(PodracerConfig(), runtime=ray_tpu)
+        try:
+            members = run.members
+            run.run(5, timeout=120)
+            t0 = time.perf_counter()
+            outs = run.run(ticks, timeout=120)
+            seconds = time.perf_counter() - t0
+            stats = run.stats()
+            kept = list(run.outputs)
+        finally:
+            run.teardown()
+    finally:
+        ray_tpu.shutdown()
+    local = chip_smoke._podracer_run(None, ticks)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    steps = sum(o["steps"] for o in outs)
+    print(f"\n[podracer] {smi}: members {members}")
+    print(f"[podracer] ray_tpu actors: {ticks} ticks in {seconds:.3f} s: "
+          f"{ticks / seconds:.1f} ticks/s, {steps / seconds:.0f} env steps/s"
+          f" (host clock, window {run.config.channel_depth}); stats {stats}")
+    print(f"[podracer] in process (q1): {ticks / local['seconds']:.1f} "
+          f"ticks/s, {local['steps'] / local['seconds']:.0f} env steps/s")
+    *actors, learner = members
+    assert learner["device"].startswith("cuda") and learner["uuid"]
+    assert all(a["device"] == "cpu" and a["uuid"] is None for a in actors)
+    assert len({m["pid"] for m in members} | {os.getpid()}) == 4
+    assert chip_smoke.podracer_invariants(kept, 2) == []
+    assert chip_smoke.podracer_invariants(local["outs"], 2) == []
+    assert stats["ticks"] == ticks + 5 and stats["recoveries"] == 0
+    assert stats["max_inflight"] == run.config.channel_depth
+
+
+@pytest.mark.cuda
+@pytest.mark.timeout(900)
+def test_stage_pipeline_across_cards(monkeypatch):
+    """chip_smoke's q2 across four cards: GPT-2 small's four GPTStages as
+    ray_tpu actors, stage i on cuda:i (one accelerator slot each), chained
+    by StagePipeline over ray_tpu's channels (depth 4; a 4 MiB slot holds
+    an activation hop, the logits take the store's oversize path). Held:
+    four distinct pids and cards; every microbatch's logits equal, bit for
+    bit, those of the same layers run whole on one card in this process
+    (after the actors: this process touches CUDA only then); K1 launched 3
+    times a microbatch on each stage (12 in all; the warm-up microbatch
+    counted), K2 and K3 never. Prints ms a microbatch and the bytes a
+    hop."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    import os
+    import subprocess
+    import time
+
+    import ray_tpu
+    import ray_tpu.dag.compiled  # noqa: F401
+
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.parallel.pipeline import (GPTStage, StagePipeline,
+                                                 stage_params)
+    _build.build_all()          # once here, not in each actor
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
+    cfg, pp, toks = chip_smoke.stage_setup()
+    n, m = chip_smoke.STAGES["n"], chip_smoke.STAGES["microbatches"]
+
+    class Stage:
+        """A GPTStage on card ``card`` in an actor process, the port
+        imported there (ray_tpu ships this class by value)."""
+
+        def __init__(self, cfg, params, first, last, card):
+            from ray_tpu_torch.parallel.pipeline import GPTStage
+            self._stage = GPTStage(cfg, params, first=first, last=last,
+                                   device=f"cuda:{card}")
+
+        def apply(self, x):
+            return self._stage.apply(x)
+
+        def where(self):
+            return self._stage.where()
+
+        def launches(self):
+            from ray_tpu_torch.ops import attention
+            return {k: kern.launches for k, kern in attention.KERNELS.items()}
+
+    ray_tpu.init(num_cpus=8, num_tpus=n, object_store_memory=8 << 30)
+    try:
+        cls = ray_tpu.remote(num_cpus=1, num_gpus=1)(Stage)
+        stages = [cls.remote(cfg, {k: v.numpy() for k, v in
+                                   stage_params(pp, n, i).items()},
+                             i == 0, i == n - 1, i) for i in range(n)]
+        where = ray_tpu.get([s.where.remote() for s in stages], timeout=300)
+        with StagePipeline(stages, method="apply",
+                           channel_depth=chip_smoke.STAGES["channel_depth"],
+                           max_message_size=4 << 20,
+                           runtime=ray_tpu) as pipe:
+            pipe.run(toks[:1], timeout=300)          # warm-up
+            t0 = time.perf_counter()
+            outs = pipe.run(toks, timeout=300)
+            ms = 1e3 * (time.perf_counter() - t0) / m
+            stats = pipe.stats()
+        # The DAG holds its actors until it is torn down.
+        launches = ray_tpu.get([s.launches.remote() for s in stages],
+                               timeout=60)
+        for s in stages:
+            ray_tpu.kill(s)
+    finally:
+        ray_tpu.shutdown()
+    whole = GPTStage(cfg, stage_params(pp, 1, 0), first=True, last=True)
+    ref = [whole.apply(t) for t in toks]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    differ = chip_smoke.stage_gate(outs, ref)
+    print(f"\n[stages] {len(smi)} cards: {smi}")
+    print(f"[stages] stages: {where}")
+    print(f"[stages] {m} microbatches: {ms:.2f} ms a microbatch (host clock,"
+          f" after one of warm-up); a hop {2 * toks[0].size * cfg.d_model} "
+          f"bytes (bf16 bits, in a 4 MiB ring slot), the logits "
+          f"{outs[0][0].nbytes} bytes (the store's oversize path); launches "
+          f"per stage {launches}; DAG {stats}; logits differ from the whole "
+          f"run's at microbatches {differ or 'none'}")
+    assert len({w["pid"] for w in where} | {os.getpid()}) == n + 1
+    assert len({w["uuid"] for w in where}) == n
+    assert [w["device"] for w in where] == [f"cuda:{i}" for i in range(n)]
+    assert not differ
+    per = cfg.n_layers // n * (m + 1)
+    assert launches == [{"flash_fwd": per, "flash_bwd_dq": 0,
+                         "flash_bwd_dkv": 0}] * n

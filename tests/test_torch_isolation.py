@@ -44,10 +44,26 @@ TRAIN_NAMES = [
     "TrainingFailedError"]
 
 
+# The last entry points: the podracer handle, the MPMD stage pipeline, the
+# rllib command line and Tune over a port class.
+ENTRY_NAMES = {
+    "ray_tpu_torch.podracer": ["PodracerRun", "PodracerConfig",
+                               "TopologyPlan", "GangPlacement"],
+    "ray_tpu_torch.parallel.pipeline": ["StagePipeline", "GPTStage",
+                                        "stage_params", "to_hop",
+                                        "from_hop"],
+    "ray_tpu_torch.scripts.cli": ["build_parser", "cmd_rllib", "main"],
+    "ray_tpu_torch.tune": ["Trainable", "as_tune_trainable"],
+}
+
+
 def _all_modules():
+    """Every module of the package but ``__main__``, whose import runs the
+    command line (test_entry_points_import_no_jax_and_no_ray_tpu runs it)."""
     return ["ray_tpu_torch"] + sorted(
         m.name for m in pkgutil.walk_packages(ray_tpu_torch.__path__,
-                                              "ray_tpu_torch."))
+                                              "ray_tpu_torch.")
+        if m.name != "ray_tpu_torch.__main__")
 
 
 def test_package_imports_no_jax_and_no_ray_tpu():
@@ -58,6 +74,7 @@ def test_package_imports_no_jax_and_no_ray_tpu():
     assert "ray_tpu_torch.parallel.sharding" in mods
     assert set(RLLIB_MODULES) <= set(mods), set(RLLIB_MODULES) - set(mods)
     assert set(TRAIN_MODULES) <= set(mods), set(TRAIN_MODULES) - set(mods)
+    assert set(ENTRY_NAMES) | {"ray_tpu_torch.podracer.topology"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods + ['chip_smoke']!r}:\n"
@@ -89,6 +106,49 @@ def test_train_harness_imports_no_jax_and_no_ray_tpu():
                    check=True, timeout=120)
     from ray_tpu_torch import train
     assert set(TRAIN_NAMES) <= set(train.__all__)
+
+
+def test_entry_points_import_no_jax_and_no_ray_tpu():
+    """The entry points' names, imported alone in a fresh process, and
+    ``python -m ray_tpu_torch rllib train`` run to its end there (the
+    __main__ module's target, on the CPU), load no jax*, optax or ray_tpu
+    module."""
+    imports = "".join(f"from {m} import {', '.join(names)}\n"
+                      for m, names in ENTRY_NAMES.items())
+    code = (
+        "import runpy, sys\n" + imports +
+        "sys.argv = ['ray_tpu_torch', 'rllib', 'train', '--device', 'cpu', "
+        "'--stop-iters', '1', '--config', "
+        "'{\"train_batch_size\": 64, \"minibatch_size\": 32, "
+        "\"num_epochs\": 1}']\n"
+        "runpy.run_module('ray_tpu_torch', run_name='__main__')\n"
+        "tops = {m.split('.')[0] for m in sys.modules}\n"
+        "bad = sorted(t for t in tops if t.startswith('jax') "
+        "or t in ('optax', 'ray_tpu'))\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         check=True, timeout=120, capture_output=True,
+                         text=True)
+    assert out.stdout.startswith("iter 1: reward_mean="), out.stdout
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Without CUDA the podracer's learner, a GPT stage and the command
+    line's algorithm, each left to its default device, raise."""
+    from ray_tpu_torch.models import GPTConfig
+    from ray_tpu_torch.parallel.pipeline import GPTStage
+    from ray_tpu_torch.podracer import PodracerConfig, PodracerRun
+    from ray_tpu_torch.scripts.cli import build_parser
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PodracerRun(PodracerConfig(fragment_len=4, hidden=(8, 8)))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GPTStage(GPTConfig.tiny(), {}, first=True, last=True)
+    args = build_parser().parse_args(["rllib", "train", "--stop-iters", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        args.fn(args)
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

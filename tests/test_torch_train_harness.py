@@ -187,6 +187,47 @@ def test_failure_and_retry_match_jax(cluster, where, tmp_path):
     assert seen[ttrain][4:] == (2, "ValueError: nope", 3)
 
 
+@pytest.mark.timeout(150)
+@pytest.mark.parametrize("where", ["local", "ray_tpu"])
+def test_cuda_error_ends_in_process_fit_is_retried_under_a_runtime(
+        cluster, where, tmp_path):
+    """A CUDA error is sticky: it kills the process's CUDA context. In
+    process the port's fit ends after the first attempt, whatever
+    FailureConfig says; with runtime=ray_tpu each attempt gets new actor
+    processes, and the loop is retried 1 + max_failures times, as JAX's
+    JaxTrainer retries it."""
+    def cuda_error(attempts):
+        def train_fn():
+            with open(attempts, "a") as f:
+                f.write("attempt\n")
+            raise RuntimeError("CUDA error: an illegal memory access was "
+                               "encountered")
+        return train_fn
+
+    def count(path):
+        with open(path) as f:
+            return len(f.readlines())
+
+    seen = {}
+    for pkg in ((jtrain, ttrain) if where == "ray_tpu" else (ttrain,)):
+        d = tmp_path / pkg.__name__
+        d.mkdir()
+        with pytest.raises(pkg.TrainingFailedError) as info:
+            _fit(pkg, cuda_error(str(d / "attempts")), where, cluster,
+                 scaling_config=pkg.ScalingConfig(num_workers=1),
+                 run_config=pkg.RunConfig(
+                     storage_path=str(d),
+                     failure_config=pkg.FailureConfig(max_failures=2)))
+        seen[pkg] = (count(d / "attempts"),
+                     str(info.value).strip().splitlines()[-1])
+    want = (1 if where == "local" else 3,
+            "RuntimeError: CUDA error: an illegal memory access was "
+            "encountered")
+    assert seen[ttrain] == want
+    if where == "ray_tpu":
+        assert seen[jtrain] == want
+
+
 @pytest.mark.parametrize("attr,order,k", [
     (None, "max", None), (None, "max", 1), (None, "max", 2),
     ("score", "max", 1), ("score", "max", 2),

@@ -118,6 +118,14 @@ Phases, each of which raises on failure:
       checkpoint) and ``evaluate`` on the card and the CPU, as
       subprocesses, with JAX's lines, and an unknown --algo with JAX's
       message (in this process); ms an iteration beside (o)'s PPO;
+  (r) collective groups (util.collective), in this process: an NCCL group
+      of one over a store of its own, every op of JAX's three cases on card
+      tensors against numpy; this process at once in a second NCCL group of
+      one and a gloo group of two with a helper process, their ops
+      interleaved, each group's ranks and sizes its own;
+      create_collective_group over the in-process runtime (world 1, and
+      world 2, which must raise); the ms of an allreduce and a broadcast of
+      GPT-2 small's bf16 parameter tree on the group of one;
   (g) one line {"kernels": [...]} (launches from the main path, e);
   (h) last line {"ok": true, "device": {...}}.
 
@@ -2887,6 +2895,221 @@ def phase_entry_points(ppo_ms) -> None:
 
 
 # ---------------------------------------------------------------------------
+# (r) collective groups
+# ---------------------------------------------------------------------------
+
+def _np(v):
+    """A result as numpy, for the checks (a tensor from any device)."""
+    return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def _equal(got, want) -> bool:
+    """Equal values, dtypes and shapes (trees leaf by leaf)."""
+    if isinstance(want, dict):
+        return (isinstance(got, dict) and got.keys() == want.keys()
+                and all(_equal(got[k], want[k]) for k in want))
+    if isinstance(want, (list, tuple)):
+        return (len(got) == len(want)
+                and all(_equal(g, w) for g, w in zip(got, want)))
+    g, w = _np(got), np.asarray(want)
+    return g.dtype == w.dtype and g.shape == w.shape and np.array_equal(g, w)
+
+
+def _rg_inputs() -> list:
+    """The inputs of both members of phase (r)'s gloo group "rg", drawn
+    from SEED by each member alike."""
+    rng = np.random.default_rng(SEED)
+    return [dict(x=rng.standard_normal(6),
+                 tree={"w": rng.standard_normal((2, 3)),
+                       "n": rng.integers(0, 99, 4)},
+                 rs=rng.standard_normal((5, 2)),
+                 msg=rng.standard_normal(3)) for _ in range(2)]
+
+
+def _rg_steps(col, rank, to):
+    """Member ``rank``'s ops in the gloo group "rg" of two, JAX's three
+    cases plus a reduce, each checked against numpy (two-member float64
+    sums are exact); ``to`` makes this member's values (card tensors in
+    the script's process). Yields (op, passed) after every op: the caller
+    runs other groups' ops in between."""
+    inp = _rg_inputs()
+    me, both = inp[rank], [inp[0], inp[1]]
+    g = dict(group_name="rg")
+    total = both[0]["x"] + both[1]["x"]
+    yield "allreduce", _equal(col.allreduce(to(me["x"]), **g), total)
+    tree = {k: to(v) for k, v in me["tree"].items()}
+    yield "allreduce tree", _equal(col.allreduce(tree, **g), {
+        k: both[0]["tree"][k] + both[1]["tree"][k] for k in me["tree"]})
+    sent = col.broadcast(tree if rank == 0 else None, src_rank=0, **g)
+    yield "broadcast tree", _equal(sent, both[0]["tree"])
+    yield "allgather", _equal(col.allgather(to(me["x"][:rank + 2]), **g),
+                              [both[0]["x"][:2], both[1]["x"][:3]])
+    yield "reducescatter", _equal(
+        col.reducescatter(to(me["rs"]), **g),
+        np.array_split(both[0]["rs"] + both[1]["rs"], 2)[rank])
+    col.send(to(me["msg"]), dst_rank=1 - rank, **g)
+    yield "send/recv", _equal(col.recv(src_rank=1 - rank, **g),
+                              both[1 - rank]["msg"])
+    yield "reduce", _equal(col.reduce(to(me["x"]), dst_rank=1, **g),
+                           total if rank == 1 else me["x"])
+    col.barrier(**g)
+    yield "barrier", True
+
+
+def collective_helper() -> None:
+    """Phase (r)'s other member of the gloo group "rg" (rank 0), in a
+    process of its own that touches no card: serves the group's store,
+    prints its address, runs _rg_steps on numpy values and exits 1 if a
+    check fails. Run by phase (r) as ``python -c "import chip_smoke as c;
+    c.collective_helper()"``."""
+    from ray_tpu_torch.util import collective as col
+    addr = col.open_collective_store("rg")
+    print(addr, flush=True)
+    col.init_collective_group(2, 0, group_name="rg", init_method=addr)
+    failed = [op for op, ok in _rg_steps(col, 0, lambda a: a) if not ok]
+    col.destroy_collective_group("rg")
+    if failed:
+        print(f"collective helper: failed {failed}", file=sys.stderr)
+        sys.exit(1)
+
+
+def _group_of_one(col, name, dev) -> dict:
+    """Every op of JAX's three cases on card tensors in the NCCL group of
+    one ``name``: each result equal to numpy's (in a world of one, the
+    input) and on the card. -> {op: passed}."""
+    rng = np.random.default_rng(SEED + 1)
+    x = rng.standard_normal(8).astype(np.float32)
+    tree = {"w": rng.standard_normal((4, 3)).astype(np.float32),
+            "b": [rng.standard_normal(5), rng.integers(0, 9, 3)]}
+    rs = rng.standard_normal((5, 2)).astype(np.float32)
+
+    def card(v):
+        if isinstance(v, dict):
+            return {k: card(w) for k, w in v.items()}
+        if isinstance(v, list):
+            return [card(w) for w in v]
+        return torch.from_numpy(v).to(dev)
+
+    def on_card(v) -> bool:
+        if isinstance(v, dict):
+            return all(on_card(w) for w in v.values())
+        if isinstance(v, list):
+            return all(on_card(w) for w in v)
+        return isinstance(v, torch.Tensor) and v.device == dev
+
+    g = dict(group_name=name)
+    got = {
+        "allreduce": (col.allreduce(card(x), **g), x),
+        "allreduce tree": (col.allreduce(card(tree), **g), tree),
+        "reduce": (col.reduce(card(x), dst_rank=0, **g), x),
+        "broadcast": (col.broadcast(card(x), src_rank=0, **g), x),
+        "broadcast tree": (col.broadcast(card(tree), src_rank=0, **g), tree),
+        "allgather": (col.allgather(card(x), **g), [x]),
+        "reducescatter": (col.reducescatter(card(rs), **g), rs)}
+    col.barrier(**g)
+    col.send(card(x), dst_rank=0, **g)
+    col.send(card(rs), dst_rank=0, **g)
+    got["send/recv itself"] = ([col.recv(src_rank=0, **g),
+                                col.recv(src_rank=0, **g)], [x, rs])
+    return {op: _equal(v, want) and on_card(v)
+            for op, (v, want) in got.items()}
+
+
+def phase_collectives() -> None:
+    """(r) Collective groups (util.collective), in this process: (r1) an
+    NCCL group of one over a store of its own, every op of JAX's three
+    cases on card tensors; (r2) this process in a second NCCL group of one
+    and in a gloo group of two with a helper process (rank 0, which serves
+    the group's store) at once, the gloo ops interleaved with ops of both
+    NCCL groups, each group's ranks and sizes its own, and r1 still right
+    after r2 and the gloo group are destroyed; (r3)
+    create_collective_group over util/local_runtime.py actors with world 1,
+    and with world 2, which must raise; (r4) the ms of an allreduce and a
+    broadcast of GPT-2 small's bf16 parameter tree on the group of one.
+    One gate line; raises if any check fails."""
+    from ray_tpu_torch.models.gpt import GPTConfig, gpt_init
+    from ray_tpu_torch.util import collective as col
+    from ray_tpu_torch.util import local_runtime
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    col.init_collective_group(1, 0, backend="nccl", group_name="r1")
+    r1 = _group_of_one(col, "r1", dev)
+    helper = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke as c; "
+         "c.collective_helper()"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, text=True)
+    try:
+        addr = helper.stdout.readline().strip()
+        col.init_collective_group(1, 0, backend="nccl", group_name="r2")
+        col.init_collective_group(2, 1, group_name="rg", init_method=addr)
+        ranks = {n: (col.get_rank(n), col.get_collective_group_size(n))
+                 for n in ("r1", "r2", "rg")}
+        rg, between = {}, []
+        x = torch.arange(6, dtype=torch.float32, device=dev)
+        for i, (op, ok) in enumerate(_rg_steps(
+                col, 1, lambda a: torch.from_numpy(a).to(dev))):
+            rg[op] = ok
+            name = ("r1", "r2")[i % 2]
+            between.append(_equal(col.allreduce(x + i, group_name=name),
+                                  _np(x + i)))
+        col.destroy_collective_group("rg")
+        helper_rc = helper.wait(timeout=60)
+    finally:
+        if helper.poll() is None:
+            helper.kill()
+            helper.wait()
+    col.destroy_collective_group("r2")
+    after = _equal(col.allreduce(x, group_name="r1"), _np(x)) and not any(
+        col.is_group_initialized(n) for n in ("r2", "rg"))
+    member = local_runtime.remote(col.CollectiveGroupMixin).remote()
+    col.create_collective_group([member], 1, [0], backend="nccl",
+                                group_name="r3")
+    r3 = (_equal(col.allreduce(x, group_name="r3"), _np(x))
+          and col.get_collective_group_size("r3") == 1)
+    col.destroy_collective_group("r3")
+    try:
+        col.create_collective_group([member, member], 2, [0, 1],
+                                    group_name="r3b")
+        refused = False
+    except ValueError as e:
+        refused = "needs a runtime" in str(e)
+    ok = (all(r1.values()) and all(rg.values()) and all(between)
+          and helper_rc == 0 and after and r3 and refused
+          and ranks == {"r1": (0, 1), "r2": (0, 1), "rg": (1, 2)})
+    log(f"[r] gate collectives: r1 NCCL group of one {sum(r1.values())}/"
+        f"{len(r1)} ops on the card equal numpy's; r2 gloo group of two "
+        f"(helper exit {helper_rc}) {sum(rg.values())}/{len(rg)} ops right "
+        f"with {sum(between)}/{len(between)} NCCL ops of r1/r2 between "
+        f"them; ranks and sizes {ranks}; r1 right after r2 and rg are "
+        f"destroyed: {after}; r3 create_collective_group world 1: {r3}, "
+        f"world 2 with no runtime refused: {refused}: "
+        f"{'pass' if ok else 'fail'}")
+    if not ok:
+        raise AssertionError(f"collectives: r1 {r1} rg {rg} between "
+                             f"{between} helper {helper_rc}")
+    model = gpt_init(GPTConfig.gpt2_small(), device=dev)
+    tree = {k: p.detach().to(torch.bfloat16)
+            for k, p in model.named_parameters()}
+    del model
+    leaves, n = len(tree), sum(t.numel() for t in tree.values())
+    nbytes = sum(t.numel() * t.element_size() for t in tree.values())
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    ar_ms = _time_ms(lambda: col.allreduce(tree, group_name="r1"), flush)
+    bc_ms = _time_ms(lambda: col.broadcast(tree, src_rank=0,
+                                           group_name="r1"), flush)
+    col.destroy_collective_group("r1")
+    del tree, flush
+    torch.cuda.empty_cache()
+    log(f"[r4] GPT-2 small's parameter tree ({leaves} leaves, {n} "
+        f"parameters, {nbytes} bytes bf16) on the NCCL group of one: "
+        f"allreduce {ar_ms:.3f} ms, "
+        f"broadcast {bc_ms:.3f} ms (median of {TIMED_RUNS}, CUDA events); "
+        f"phase (r) "
+        f"took {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # (f) kernel timing
 # ---------------------------------------------------------------------------
 
@@ -3018,14 +3241,15 @@ def main() -> int:
     algo_ms = phase_algorithms()
     phase_harness(e_step_ms)
     phase_entry_points(algo_ms["PPO"])
+    phase_collectives()
     kernels = [dict(name=n, route="cuda", source=SOURCES[n],
                     replaces=REPLACES[n],
                     launches=launches[n], max_abs_err=errs[n],
                     library=LIBRARY_CALLS[n], **timing[n])
                for n in REPLACES]
     log(f"[g] total {time.perf_counter() - t_start:.1f} s on {dev['smi']} "
-        f"(the script before phase (q): 327.4 s on an NVIDIA H100 80GB "
-        f"HBM3 at 700.00 W, PERF.md run H2)")
+        f"(the script before phase (r): 354.3 s on an NVIDIA H100 80GB "
+        f"HBM3 at 700.00 W, PERF.md run Q5)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}),

@@ -1,21 +1,48 @@
 """Host-plane collectives: the counterpart of ``ray_tpu/util/collective.py``.
 
-The JAX module keeps a named rendezvous actor whose mailboxes carry numpy
-payloads through the object store. The port keeps its API over
+The JAX module keeps one named rendezvous actor per group, whose mailboxes
+carry numpy payloads through the object store. The port keeps its API over
 ``torch.distributed`` process groups instead, the original Ray's own
-backends: gloo for host tensors, NCCL for CUDA ones. ``init_collective_group``
-joins a named group of the whole world; it initialises the world's default
-process group first where no one has (give it ``init_method``, for example
-``tcp://localhost:<port>`` or ``file://<path>``).
+backends: gloo for host tensors, NCCL for CUDA ones. As in the reference,
+each named group is a rendezvous of its own: ``init_collective_group``
+makes the group's process groups from a store for that group alone (read
+under the group's name), whatever the process's default world is, so one
+process may sit in several groups, each with its own size and its own rank
+for that process, and a group may hold some processes of a world and not
+others.
+
+Where the store comes from (``init_method``):
+
+- ``tcp://host:port``: a ``TCPStore`` that the group's rank 0 serves. Rank 0
+  opens it with ``open_collective_store`` before it joins (the port the
+  bind picks, so no other process can take it first) and hands the address
+  it returns to the other members;
+- None: a group of one keeps a store of its own; otherwise the group meets
+  in the store of the process's default world (``init_process_group``),
+  which every member then shares. That store outlives the group, so each
+  forming of a name meets under a number of its own, which rank 0 draws
+  from the store and posts to each other member (``_world_store``): a name
+  formed again, by the same members or others, meets afresh.
+
+``create_collective_group`` does this over actors: it asks rank 0's actor
+to open the store, then every member to join with the address. The
+runtime is handed in, as ``build(runtime=...)`` and ``Trainer(runtime=...)``
+take it (``runtime=ray_tpu``: actors in processes of their own; None:
+``util/local_runtime.py``, in the caller's process). ``ray_tpu`` ships the
+port's modules by value, so this module's state lives in the module as the
+process imported it (``_process()``) and the mixin's methods call through
+it.
 
 Every function takes a numpy array, a torch tensor, a number, or a tree of
-dicts, lists and tuples of those (``allreduce``, ``reduce``), and returns
-the same kind: numpy in, numpy out; a tensor comes back on its own device.
-On an NCCL group the payload travels through the current CUDA device. As
-in the reference:
+dicts, lists and tuples of those (``allreduce``, ``reduce``, ``broadcast``),
+and returns the same kind: numpy in, numpy out; a tensor the caller passed
+comes back on its own device, one that arrives from another member on the
+group's device. On an NCCL group the payload travels through the current
+CUDA device, the one bound when the group was made. As in the reference:
 
 - ``reduce`` returns the result on ``dst_rank`` and the input elsewhere;
-- ``broadcast`` takes None on every rank but ``src_rank``;
+- ``broadcast`` takes None on every rank but ``src_rank`` and returns what
+  ``src_rank`` passed (a tree travels as one buffer per dtype);
 - ``allgather`` returns the list of every rank's value, shapes may differ;
 - ``reducescatter`` takes one array and returns this rank's part of the
   reduced array, split along dim 0 as ``np.array_split`` splits it (the
@@ -23,25 +50,34 @@ in the reference:
   parts are padded to the longest for it);
 - ``send`` returns without waiting for the receiver, so two ranks may send
   to each other before they receive; ``recv`` takes what the peer's next
-  send to it sent, of any shape (a header of its shape and type travels
-  first). Point to point goes over a gloo group of its own in host
-  memory whatever the backend, as the reference's host plane ships numpy.
-  This is a workaround, not a property of NCCL that was shown: on four
-  H100s the symmetric exchange over NCCL hung in three designs (``send``
-  and ``recv`` on the collective group; a group per direction;
-  ``batch_isend_irecv`` after making each pair's communicator), while the
-  pipeline's blocking NCCL P2P on the same cards does not hang. The cause
-  was not isolated; PERF.md, section 6, lists the runs.
+  send to it sent, of any shape (a header of its shape, type and kind
+  travels first). A send to this rank itself waits in the group's mailbox
+  for this rank's ``recv``. On a gloo group point to point goes over a
+  second gloo group of the members. On an NCCL group it goes over a group
+  of two for each direction between two members, each with its own
+  communicator, made when the group is made (``_links``), so that a
+  member's send never waits on the card behind its own receive, nor a
+  peer's receive behind that peer's send.
 
-All ranks must call the same collectives in the same order. The rendezvous
-actor itself is runtime and is not ported.
+``destroy_collective_group`` shuts the group's process groups down in the
+order they were made, one order on every member: an NCCL communicator's
+shutdown waits for its peers, and four ranks that shut their pairs down
+in orders of their own hung there (ROADMAP.md, R-4).
+
+All members of a group must call its collectives in the same order.
 """
 
 from __future__ import annotations
 
+import collections
+import datetime
+import importlib
+import pickle
+import socket
 import threading
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Deque, Dict, List, Optional, Tuple
+from urllib.parse import urlparse
 
 import numpy as np
 import torch
@@ -59,73 +95,258 @@ _OPS = {ReduceOp.SUM: dist.ReduceOp.SUM,
         ReduceOp.PRODUCT: dist.ReduceOp.PRODUCT,
         ReduceOp.MIN: dist.ReduceOp.MIN, ReduceOp.MAX: dist.ReduceOp.MAX}
 
-# A message's header on the wire: dtype code, number of dims, then up to
-# _MAX_DIMS sizes.
+# A message's header on the wire: dtype code, kind, number of dims, then
+# up to _MAX_DIMS sizes.
 _MAX_DIMS = 8
 _DTYPES = [torch.float32, torch.float64, torch.float16, torch.bfloat16,
            torch.int64, torch.int32, torch.int16, torch.int8, torch.uint8,
            torch.bool]
+# What a value was, so that it comes back as the same kind.
+_NUMPY, _TENSOR, _SCALAR = 0, 1, 2
+
+# The rendezvous's and every collective's timeout: a member that never
+# comes fails the others rather than wedging them.
+_TIMEOUT = datetime.timedelta(minutes=10)
 
 
 @dataclass
 class _GroupState:
     world_size: int
     rank: int
-    group: Any
-    p2p: Any           # gloo: send and recv
+    group: Any                       # the collectives
     device: torch.device
+    # Point to point: {peer: (process group, the peer's rank in it)}.
+    send_to: Dict[int, Tuple[Any, int]]
+    recv_from: Dict[int, Tuple[Any, int]]
+    # Every process group of the group, in the order they were made: one
+    # order on every member, the order destroy shuts them down in (module
+    # doc).
+    groups: List[Any]
+    store: Any    # the group's own store, kept while it stands (rank 0:
+                  # served; None: the default world's)
     pending: List[Any] = field(default_factory=list)   # sends in flight
+    mailbox: Deque[Any] = field(default_factory=collections.deque)
 
 
-_groups: Dict[str, _GroupState] = {}
+# Process state, kept in this module as the process imported it
+# (_process(); the module doc says why): the groups joined, and the stores
+# this process serves for groups it has not joined yet.
+_groups: Dict[str, Optional[_GroupState]] = {}
+_served: Dict[str, Any] = {}
 _groups_lock = threading.Lock()
+
+
+def _process():
+    """This module as this process imported it (module doc)."""
+    return importlib.import_module(__name__)
+
+
+def _host_address() -> str:
+    """The address other hosts reach this one at: what its name resolves
+    to, if that is an address of this host, else the loopback."""
+    try:
+        addr = socket.gethostbyname(socket.gethostname())
+        with socket.socket() as s:
+            s.bind((addr, 0))
+        return addr
+    except OSError:
+        return "127.0.0.1"
+
+
+def open_collective_store(group_name: str = "default",
+                          host: Optional[str] = None) -> str:
+    """On the group's rank 0, before it joins: serve the group's store on a
+    port the bind picks (on every interface) and keep it. ->
+    ``tcp://host:port``, the ``init_method`` of every member. ``host``: the
+    address the others reach this process at; by default the address this
+    host's name resolves to (the loopback where that is not one of this
+    host's), so pass it where the members' hosts know this one by
+    another."""
+    here = _process()
+    with here._groups_lock:
+        if group_name in here._groups or group_name in here._served:
+            raise RuntimeError(
+                f"group '{group_name}' already initialized here")
+        store = here._served[group_name] = dist.TCPStore(
+            "127.0.0.1", 0, is_master=True, timeout=_TIMEOUT,
+            wait_for_workers=False)
+    return f"tcp://{host or _host_address()}:{store.port}"
+
+
+def _world_store(world_size: int, rank: int, group_name: str):
+    """The default world's store under a prefix for this forming of the
+    group (module doc). Rank 0 draws the number; each other member takes
+    its copy off the store, so that the next forming's members wait for
+    the next number."""
+    world = dist.distributed_c10d._get_default_store()
+    key = f"collective/{group_name}/"
+    if rank == 0:
+        n = world.add(key + "formed", 1)
+        for r in range(1, world_size):
+            world.set(f"{key}number/{r}", str(n))
+    else:
+        n = int(world.get(f"{key}number/{rank}"))
+        world.delete_key(f"{key}number/{rank}")
+    return dist.PrefixStore(f"{key}{n}/", world)
+
+
+def _rendezvous(world_size: int, rank: int, group_name: str,
+                init_method: Optional[str]):
+    """-> (the store the group meets in, read under its name; the store to
+    keep while the group stands) (module doc)."""
+    here = _process()
+    served = here._served.pop(group_name, None)
+    if init_method is None:
+        if world_size == 1:
+            base = dist.HashStore()
+        elif dist.is_initialized():
+            return _world_store(world_size, rank, group_name), None
+        else:
+            raise ValueError(
+                f"rank {rank} of group '{group_name}' (world {world_size}): "
+                "give init_method, the address of the group's store "
+                "(open_collective_store on its rank 0 returns it), or join a "
+                "default world first")
+    else:
+        url = urlparse(init_method)
+        if url.scheme != "tcp":
+            raise ValueError(f"init_method {init_method!r}: tcp://host:port")
+        if rank > 0:
+            base = dist.TCPStore(url.hostname, url.port, is_master=False,
+                                 timeout=_TIMEOUT)
+        elif served is None:
+            raise ValueError(
+                f"rank 0 of group '{group_name}' serves the group's store: "
+                "open it with open_collective_store before joining (it "
+                "returns the init_method)")
+        else:
+            base = served
+    return dist.PrefixStore(f"collective/{group_name}/", base), base
+
+
+def _make_group(store, rank: int, size: int, backend: str,
+                device: torch.device, eager: bool = True):
+    """A process group of ``size`` members over ``store``, made from the
+    store alone: nothing of the default world takes part. ``eager``: an
+    NCCL group's communicator is made here, not at its first op."""
+    pg = dist.ProcessGroup(store, rank, size)
+    if backend == "nccl":
+        options = dist.ProcessGroupNCCL.Options()
+        options._timeout = _TIMEOUT
+        impl = dist.ProcessGroupNCCL(dist.PrefixStore("cuda/", store), rank,
+                                     size, options)
+        kind = dist.ProcessGroup.BackendType.NCCL
+        pg.bound_device_id = device
+    else:
+        impl = dist.ProcessGroupGloo(dist.PrefixStore("cpu/", store), rank,
+                                     size, _TIMEOUT)
+        kind = dist.ProcessGroup.BackendType.GLOO
+    pg._set_default_backend(kind)
+    pg._register_backend(torch.device(device.type), kind, impl)
+    if backend == "nccl" and eager:
+        impl.eager_connect_single_device(device)
+    return pg
+
+
+def _links(store, rank: int, size: int, backend: str, device: torch.device):
+    """Point to point: ({peer: (group, the peer's rank in it)} to send to,
+    the same to receive from, the groups in the order made). Gloo: one
+    group of the members. NCCL: a group of two for each direction between
+    two members, its communicator made here, in one order on every member
+    (src, then dst), so that no two members wait on each other; a send and
+    a receive between the same two members then run on communicators, and
+    streams, of their own."""
+    if backend == "gloo":
+        p2p = _make_group(dist.PrefixStore("p2p/", store), rank, size,
+                          "gloo", device)
+        links = {peer: (p2p, peer) for peer in range(size) if peer != rank}
+        return links, links, [p2p]
+    send_to, recv_from, made = {}, {}, []
+    for src in range(size):
+        for dst in range(size):
+            if src == dst or rank not in (src, dst):
+                continue
+            pair = _make_group(dist.PrefixStore(f"p2p/{src}-{dst}/", store),
+                               int(rank == dst), 2, "nccl", device,
+                               eager=False)
+            made.append(pair)
+            # A first message makes the pair's point-to-point communicator.
+            first = torch.zeros(1, device=device)
+            if rank == src:
+                pair.send([first], 1, 0).wait()
+                send_to[dst] = (pair, 1)
+            else:
+                pair.recv([first], 0, 0).wait()
+                recv_from[src] = (pair, 0)
+    torch.cuda.synchronize(device)
+    return send_to, recv_from, made
 
 
 def init_collective_group(world_size: int, rank: int,
                           backend: str = "gloo",
                           group_name: str = "default",
                           init_method: Optional[str] = None) -> None:
-    """Join a collective group of the whole world (call once on each
-    member). ``backend``: "gloo" (host tensors) or "nccl" (CUDA tensors,
-    on the current device)."""
+    """Join a collective group (call once on each member; returns when every
+    member has joined). ``backend``: "gloo" (host tensors) or "nccl" (CUDA
+    tensors, on the current device, which each member binds first).
+    ``init_method``: where the group meets (module doc)."""
     if not 0 <= rank < world_size:
         raise ValueError(f"rank {rank} out of range for world {world_size}")
     if backend not in ("gloo", "nccl"):
         raise ValueError(f"backend {backend!r}: 'gloo' or 'nccl'")
-    with _groups_lock:
-        if group_name in _groups:
+    here = _process()
+    with here._groups_lock:
+        if group_name in here._groups:
             raise RuntimeError(
                 f"group '{group_name}' already initialized here")
-    if not dist.is_initialized():
-        if init_method is None:
-            raise ValueError("no process group yet: give init_method (the "
-                             "world's address, e.g. tcp://localhost:<port>)")
-        dist.init_process_group(backend, init_method=init_method,
-                                world_size=world_size, rank=rank)
-    if (dist.get_world_size(), dist.get_rank()) != (world_size, rank):
-        raise ValueError(f"rank {rank} of {world_size}: the world is rank "
-                         f"{dist.get_rank()} of {dist.get_world_size()}")
-    group = dist.new_group(backend=backend)
-    p2p = dist.new_group(backend="gloo")
-    device = (torch.device("cuda", torch.cuda.current_device())
-              if backend == "nccl" else torch.device("cpu"))
-    with _groups_lock:
-        _groups[group_name] = _GroupState(world_size, rank, group, p2p,
+        here._groups[group_name] = None   # reserve against concurrent init
+    try:
+        store, base = _rendezvous(world_size, rank, group_name, init_method)
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if backend == "nccl" else torch.device("cpu"))
+        group = _make_group(store, rank, world_size, backend, device)
+        send_to, recv_from, made = _links(store, rank, world_size, backend,
                                           device)
+        state = _GroupState(world_size, rank, group, device, send_to,
+                            recv_from, [group, *made], base)
+    except BaseException:
+        with here._groups_lock:
+            here._groups.pop(group_name, None)
+        raise
+    with here._groups_lock:
+        here._groups[group_name] = state
 
 
 def destroy_collective_group(group_name: str = "default") -> None:
-    with _groups_lock:
-        state = _groups.pop(group_name, None)
-    if state is not None:
-        _flush(state)
-        for group in (state.group, state.p2p):
-            dist.destroy_process_group(group)
+    """Leave the group: wait for this rank's sends, shut its process groups
+    down and close its store (rank 0 serves it)."""
+    here = _process()
+    with here._groups_lock:
+        state = here._groups.pop(group_name, None)
+        here._served.pop(group_name, None)
+    if state is None:
+        return
+    _flush(state)
+    for pg in state.groups:
+        pg.shutdown()
+
+
+def is_group_initialized(group_name: str = "default") -> bool:
+    return group_name in _process()._groups
+
+
+def get_rank(group_name: str = "default") -> int:
+    return _group(group_name).rank
+
+
+def get_collective_group_size(group_name: str = "default") -> int:
+    return _group(group_name).world_size
 
 
 def _group(group_name: str) -> _GroupState:
-    with _groups_lock:
-        g = _groups.get(group_name)
+    here = _process()
+    with here._groups_lock:
+        g = here._groups.get(group_name)
     if g is None:
         raise RuntimeError(
             f"collective group '{group_name}' not initialized; call "
@@ -135,7 +356,7 @@ def _group(group_name: str) -> _GroupState:
 
 def _flush(g: _GroupState) -> None:
     """Wait for this rank's sends in flight."""
-    for work in g.pending:
+    for work, _ in g.pending:
         work.wait()
     g.pending.clear()
 
@@ -144,19 +365,38 @@ def _flush(g: _GroupState) -> None:
 # Values: numpy, tensors, numbers, and trees of them
 # ---------------------------------------------------------------------------
 
-def _to_tensor(x, g: _GroupState) -> torch.Tensor:
-    """A copy of ``x`` on the group's device (the collectives work in
-    place; the caller's value stays as it was)."""
-    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
-    return t.detach().to(g.device, copy=True).contiguous()
+def _kind(x) -> int:
+    if isinstance(x, torch.Tensor):
+        return _TENSOR
+    return _NUMPY if isinstance(x, np.ndarray) else _SCALAR
+
+
+def _as_torch(x) -> torch.Tensor:
+    """``x`` as a tensor where it lies (numpy: sharing its memory)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach()
+    return torch.as_tensor(np.asarray(x))
+
+
+def _to_tensor(x, device: torch.device) -> torch.Tensor:
+    """A copy of ``x`` on ``device`` (the collectives work in place; the
+    caller's value stays as it was)."""
+    return _as_torch(x).to(device, copy=True).contiguous()
+
+
+def _as_kind(t: torch.Tensor, kind: int):
+    """``t`` as a value of ``kind``: a tensor stays where it is."""
+    if kind == _TENSOR:
+        return t
+    out = t.cpu().numpy()
+    return out if kind == _NUMPY else out[()]
 
 
 def _like(t: torch.Tensor, x):
-    """``t`` as the kind of value ``x`` was."""
+    """``t`` as the kind of value ``x`` was (a tensor: on ``x``'s device)."""
     if isinstance(x, torch.Tensor):
         return t.to(x.device)
-    out = t.cpu().numpy()
-    return out if isinstance(x, np.ndarray) else out[()]
+    return _as_kind(t, _kind(x))
 
 
 def _leaves(tree) -> list:
@@ -189,10 +429,9 @@ def allreduce(tensor, group_name: str = "default", op: str = ReduceOp.SUM):
     """Allreduce an array or a tree of them across the group; returns the
     result."""
     g = _group(group_name)
-    leaves = _leaves(tensor)
     out = []
-    for x in leaves:
-        t = _to_tensor(x, g)
+    for x in _leaves(tensor):
+        t = _to_tensor(x, g.device)
         dist.all_reduce(t, op=_OPS[op], group=g.group)
         out.append(_like(t, x))
     return _rebuild(tensor, out)
@@ -201,58 +440,87 @@ def allreduce(tensor, group_name: str = "default", op: str = ReduceOp.SUM):
 def reduce(tensor, dst_rank: int = 0, group_name: str = "default",
            op: str = ReduceOp.SUM):
     g = _group(group_name)
-    leaves = _leaves(tensor)
     out = []
-    for x in leaves:
-        t = _to_tensor(x, g)
-        dist.reduce(t, dist.get_global_rank(g.group, dst_rank),
-                    op=_OPS[op], group=g.group)
+    for x in _leaves(tensor):
+        t = _to_tensor(x, g.device)
+        dist.reduce(t, group_dst=dst_rank, op=_OPS[op], group=g.group)
         out.append(_like(t, x))
     return _rebuild(tensor, out) if g.rank == dst_rank else tensor
 
 
-def _header(t: Optional[torch.Tensor], g: Optional[_GroupState]
-            ) -> torch.Tensor:
-    """[dtype code, ndim, sizes...]; -1 where there is no tensor. On the
-    group's device (None: the host)."""
-    h = torch.full((2 + _MAX_DIMS,), -1, dtype=torch.int64)
+def _header(t: Optional[torch.Tensor], kind: int,
+            device: torch.device) -> torch.Tensor:
+    """[dtype code, kind, ndim, sizes...]; -1 where there is no tensor."""
+    h = torch.full((3 + _MAX_DIMS,), -1, dtype=torch.int64)
     if t is not None:
         if t.dim() > _MAX_DIMS:
             raise ValueError(f"{t.dim()} dims; at most {_MAX_DIMS}")
-        h[0], h[1] = _DTYPES.index(t.dtype), t.dim()
-        h[2:2 + t.dim()] = torch.tensor(t.shape)
-    return h if g is None else h.to(g.device)
+        h[0], h[1], h[2] = _DTYPES.index(t.dtype), kind, t.dim()
+        h[3:3 + t.dim()] = torch.tensor(t.shape)
+    return h.to(device)
 
 
-def _from_header(h: torch.Tensor, g: Optional[_GroupState]) -> torch.Tensor:
+def _from_header(h: torch.Tensor, device: torch.device
+                 ) -> Tuple[torch.Tensor, int]:
+    """An empty tensor of the header's dtype and shape, and its kind."""
     h = h.cpu().tolist()
-    return torch.empty(h[2:2 + h[1]], dtype=_DTYPES[h[0]],
-                       device="cpu" if g is None else g.device)
+    return (torch.empty(h[3:3 + h[2]], dtype=_DTYPES[h[0]], device=device),
+            h[1])
+
+
+def _broadcast_bytes(data: Optional[bytes], src_rank: int,
+                     g: _GroupState) -> bytes:
+    n = torch.tensor([len(data) if data is not None else 0],
+                     dtype=torch.int64, device=g.device)
+    dist.broadcast(n, group_src=src_rank, group=g.group)
+    buf = (torch.frombuffer(bytearray(data), dtype=torch.uint8).to(g.device)
+           if data is not None else
+           torch.empty(int(n.item()), dtype=torch.uint8, device=g.device))
+    dist.broadcast(buf, group_src=src_rank, group=g.group)
+    return bytes(buf.cpu().numpy())
 
 
 def broadcast(tensor, src_rank: int = 0, group_name: str = "default"):
-    """``src_rank``'s value on every rank; the others may pass None."""
+    """``src_rank``'s value (an array or a tree of them) on every rank; the
+    others may pass None. The tree's layout travels first, then one buffer
+    for each dtype of its leaves, into which ``src_rank`` copies each leaf
+    once."""
     g = _group(group_name)
-    src = dist.get_global_rank(g.group, src_rank)
     mine = g.rank == src_rank
-    t = _to_tensor(tensor, g) if mine else None
-    h = _header(t, g)
-    dist.broadcast(h, src, group=g.group)
-    if not mine:
-        t = _from_header(h, g)
-    dist.broadcast(t, src, group=g.group)
-    if tensor is None:
-        return t.cpu().numpy()
-    return _like(t, tensor)
+    layout = None
+    if mine:
+        given = _leaves(tensor)
+        leaves = [_as_torch(x) for x in given]
+        layout = pickle.dumps((
+            _rebuild(tensor, [None] * len(leaves)),
+            [(_DTYPES.index(t.dtype), _kind(x), tuple(t.shape))
+             for t, x in zip(leaves, given)]))
+    skeleton, specs = pickle.loads(_broadcast_bytes(layout, src_rank, g))
+    out: List[Optional[torch.Tensor]] = [None] * len(specs)
+    for code in sorted({code for code, _, _ in specs}):
+        idx = [i for i, spec in enumerate(specs) if spec[0] == code]
+        sizes = [int(np.prod(specs[i][2], dtype=np.int64)) for i in idx]
+        flat = torch.empty(sum(sizes), dtype=_DTYPES[code], device=g.device)
+        for i, part in zip(idx, flat.split(sizes)):
+            out[i] = part.view(specs[i][2])
+            if mine:
+                out[i].copy_(leaves[i])
+        dist.broadcast(flat, group_src=src_rank, group=g.group)
+    if mine:
+        values = [_like(t, x) for t, x in zip(out, given)]
+    else:
+        values = [_as_kind(t, kind) for t, (_, kind, _) in zip(out, specs)]
+    return _rebuild(skeleton, values)
 
 
 def allgather(tensor, group_name: str = "default") -> List:
     """Every rank's value, in rank order; their shapes may differ."""
     g = _group(group_name)
-    t = _to_tensor(tensor, g)
-    heads = [torch.empty_like(_header(t, g)) for _ in range(g.world_size)]
-    dist.all_gather(heads, _header(t, g), group=g.group)
-    shapes = [_from_header(h, g) for h in heads]
+    t = _to_tensor(tensor, g.device)
+    mine = _header(t, _kind(tensor), g.device)
+    heads = [torch.empty_like(mine) for _ in range(g.world_size)]
+    dist.all_gather(heads, mine, group=g.group)
+    shapes = [_from_header(h, g.device)[0] for h in heads]
     longest = max(s.numel() for s in shapes)
     flat = torch.zeros(longest, dtype=t.dtype, device=g.device)
     flat[:t.numel()] = t.reshape(-1)
@@ -272,7 +540,7 @@ def reducescatter(tensor, group_name: str = "default",
             "reducescatter takes a single ndarray (partitioned along "
             "axis 0); reduce pytrees with allreduce instead")
     g = _group(group_name)
-    t = _to_tensor(tensor, g)
+    t = _to_tensor(tensor, g.device)
     n, w = t.shape[0], g.world_size
     sizes = [len(p) for p in np.array_split(np.arange(n), w)]
     longest = max(sizes)
@@ -291,27 +559,106 @@ def reducescatter(tensor, group_name: str = "default",
 
 
 def barrier(group_name: str = "default") -> None:
+    """Returns once every member has reached it (sends in flight may still
+    be waiting for their receivers, as the reference's sends are held by
+    its rendezvous): an allreduce of one element, read on the host."""
     g = _group(group_name)
-    _flush(g)
-    dist.barrier(group=g.group)
+    token = torch.zeros(1, device=g.device)
+    dist.all_reduce(token, group=g.group)
+    token.cpu()
 
 
 def send(tensor, dst_rank: int, group_name: str = "default") -> None:
     """Post ``tensor`` to ``dst_rank``; returns without waiting for it to be
     received."""
     g = _group(group_name)
-    t = _to_tensor(tensor, g).cpu()
-    dst = dist.get_global_rank(g.p2p, dst_rank)
-    g.pending.append(dist.isend(_header(t, None), dst, group=g.p2p))
-    g.pending.append(dist.isend(t, dst, group=g.p2p))
+    if dst_rank == g.rank:
+        g.mailbox.append((_to_tensor(tensor, g.device), _kind(tensor)))
+        return
+    pg, peer = g.send_to[dst_rank]
+    t = _to_tensor(tensor, g.device)
+    h = _header(t, _kind(tensor), g.device)
+    g.pending = [(w, keep) for w, keep in g.pending if not w.is_completed()]
+    for part in (h, t):
+        g.pending.append((pg.send([part], peer, 0), part))
 
 
 def recv(src_rank: int, group_name: str = "default"):
-    """What ``src_rank``'s next send to this rank sent (numpy)."""
+    """What ``src_rank``'s next send to this rank sent, as the kind of value
+    it sent (a tensor: on the group's device)."""
     g = _group(group_name)
-    src = dist.get_global_rank(g.p2p, src_rank)
-    h = _header(None, None)
-    dist.recv(h, src, group=g.p2p)
-    t = _from_header(h, None)
-    dist.recv(t, src, group=g.p2p)
-    return t.numpy()
+    if src_rank == g.rank:
+        if not g.mailbox:
+            raise RuntimeError(
+                f"recv from this rank ({src_rank}) of group with no send "
+                "posted to it")
+        t, kind = g.mailbox.popleft()
+        return _as_kind(t, kind)
+    pg, peer = g.recv_from[src_rank]
+    h = _header(None, _NUMPY, g.device)
+    pg.recv([h], peer, 0).wait()
+    t, kind = _from_header(h, g.device)
+    pg.recv([t], peer, 0).wait()
+    return _as_kind(t, kind)
+
+
+# ---------------------------------------------------------------------------
+# Groups of actors
+# ---------------------------------------------------------------------------
+
+def create_collective_group(actors, world_size: int, ranks: List[int],
+                            backend: str = "gloo",
+                            group_name: str = "default", runtime=None):
+    """Declarative setup (the reference's declare-style API): joins each
+    actor to the group as rank ``ranks[i]``, every rank of the group among
+    them.
+
+    The actors live behind ``runtime`` (``ray_tpu``, or None:
+    ``util/local_runtime.py``, whose calls run at once in this process, so
+    a group there has one member). For a group of more than one, rank 0's
+    actor first opens the group's store (``open_collective_store(
+    group_name)``, which returns its address: the one rank 0's host's name
+    resolves to, which every member's host must reach, or the loopback,
+    and then the members share a host); then every actor's
+    ``setup_collective_group(world_size, rank, backend, group_name,
+    init_method)`` gets that address. The easiest way to provide both
+    methods is to inherit :class:`CollectiveGroupMixin`; otherwise define
+    ``setup_collective_group`` to call ``init_collective_group(world_size,
+    rank, backend, group_name, init_method)`` with what it is given, and
+    ``open_collective_store`` to return ``open_collective_store(
+    group_name)`` (this module's functions)."""
+    from ray_tpu_torch.util import local_runtime
+    actors, ranks = list(actors), list(ranks)
+    if len(actors) != len(ranks):
+        raise ValueError(f"{len(actors)} actors and {len(ranks)} ranks")
+    if sorted(ranks) != list(range(world_size)):
+        raise ValueError(f"ranks {ranks}: every rank of a world of "
+                         f"{world_size}, once each")
+    if runtime is None and world_size > 1:
+        raise ValueError(
+            f"world_size={world_size} needs a runtime to host the group: "
+            "hand one in (runtime=ray_tpu, after ray_tpu.init()); without "
+            "one the actors run in this process, and a group there has one "
+            "member (world_size=1)")
+    rt = local_runtime if runtime is None else runtime
+    init_method = None
+    if world_size > 1:
+        init_method = rt.get(actors[ranks.index(0)]
+                             .open_collective_store.remote(group_name))
+    rt.get([actor.setup_collective_group.remote(
+        world_size, rank, backend, group_name, init_method)
+        for actor, rank in zip(actors, ranks)])
+
+
+class CollectiveGroupMixin:
+    """Mix into actor classes to make them joinable via
+    create_collective_group()."""
+
+    def setup_collective_group(self, world_size, rank, backend="gloo",
+                               group_name="default", init_method=None):
+        _process().init_collective_group(world_size, rank, backend,
+                                         group_name, init_method)
+        return True
+
+    def open_collective_store(self, group_name="default", host=None):
+        return _process().open_collective_store(group_name, host)

@@ -613,3 +613,250 @@ def test_stage_pipeline_across_cards(monkeypatch):
     per = cfg.n_layers // n * (m + 1)
     assert launches == [{"flash_fwd": per, "flash_bwd_dq": 0,
                          "flash_bwd_dkv": 0}] * n
+
+
+@pytest.mark.cuda
+@pytest.mark.timeout(900)
+def test_collective_groups_of_actors_across_cards(monkeypatch):
+    """util.collective's groups between four ray_tpu actors, one card each
+    (actor i binds cuda:i before its NCCL group is made), joined by
+    create_collective_group(..., backend="nccl", runtime=ray_tpu): JAX's
+    three cases (tests/test_collective.py :11, :58, :82) on seeded card
+    tensors, plus a ring exchange and a second NCCL group of two of the
+    actors (ranks reversed) whose ops interleave with the first's, each
+    result against numpy (float64 sums within 1e-12 relative, the rest
+    exactly) and back on the card. Then GPT-2 small's bf16 parameters
+    broadcast from rank 0 to the other three, equal bit for bit to each
+    receiver's own init from the same seed: ms (median of 5 after one
+    warm-up, the slowest rank each time, host clock after a device sync)
+    and GB/s over NCCL, beside the same tree through a gloo group of the
+    same actors (median of 3). Prints the cards' name and power limit,
+    each create_collective_group's wall time, the card memory each NCCL
+    group adds per rank, and the allocator peak of one broadcast per rank.
+    Needs four cards."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    import os
+    import statistics
+    import subprocess
+    import time
+
+    import ray_tpu
+
+    from ray_tpu_torch.util.collective import (CollectiveGroupMixin,
+                                               create_collective_group)
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
+    n = 4
+    rng = np.random.default_rng(0)
+    inp = dict(x=[rng.standard_normal(4) for _ in range(n)],
+               b=rng.standard_normal(3),
+               ints=[rng.integers(-99, 99, 3) for _ in range(n)],
+               rs=[rng.standard_normal((6, 2)) for _ in range(n)],
+               half=[rng.standard_normal(5) for _ in range(n)],
+               msg=rng.standard_normal(2),
+               sym=[rng.standard_normal(3) for _ in range(n)],
+               tw=[rng.standard_normal((2, 2)) for _ in range(n)],
+               tb=[rng.standard_normal(2) for _ in range(n)])
+    half_rank = {3: 0, 2: 1}
+
+    class Member(CollectiveGroupMixin):
+        """One card's member; ray_tpu ships this class by value, so its
+        methods import the port in their bodies."""
+
+        def __init__(self, card):
+            import torch
+            torch.cuda.set_device(card)
+            self.dev = torch.device("cuda", card)
+            self.tree = None
+
+        def where(self):
+            import os
+
+            import torch
+            return {"pid": os.getpid(), "device": str(self.dev),
+                    "uuid": str(torch.cuda.get_device_properties(
+                        self.dev).uuid)}
+
+        def card_used(self):
+            """Bytes in use on this actor's card, NCCL's own included."""
+            import torch
+            free, total = torch.cuda.mem_get_info(self.dev)
+            return total - free
+
+        def cases(self, rank, inp, half_rank):
+            import torch
+
+            from ray_tpu_torch.util import collective as col
+            n = col.get_collective_group_size("all")
+
+            def card(a):
+                return torch.tensor(a, device=self.dev)
+            g = dict(group_name="all")
+            out = {"allreduce": col.allreduce(card(inp["x"][rank]), **g),
+                   "max": col.allreduce(card(inp["x"][rank]),
+                                        op=col.ReduceOp.MAX, **g),
+                   "bcast": col.broadcast(card(inp["b"]) if rank == 1
+                                          else None, src_rank=1, **g),
+                   "allgather": col.allgather(
+                       card(inp["ints"][rank][:rank + 1]), **g),
+                   "rs": col.reducescatter(card(inp["rs"][rank]), **g),
+                   "reduce": col.reduce(card(inp["x"][rank]), dst_rank=3,
+                                        **g)}
+            if rank in half_rank:
+                out["half"] = col.allreduce(card(inp["half"][rank]),
+                                            group_name="half")
+            col.barrier(**g)
+            if rank == 0:
+                col.send(card(inp["msg"]), dst_rank=1, **g)
+            elif rank == 1:
+                out["recv"] = col.recv(src_rank=0, **g)
+            col.send(card(inp["sym"][rank]), dst_rank=rank ^ 1, **g)
+            out["sym"] = col.recv(src_rank=rank ^ 1, **g)
+            col.send(card(inp["sym"][rank]), dst_rank=(rank + 1) % n, **g)
+            out["ring"] = col.recv(src_rank=(rank - 1) % n, **g)
+            if rank in half_rank:
+                peer = 1 - half_rank[rank]
+                col.send(card(inp["half"][rank]), dst_rank=peer,
+                         group_name="half")
+                out["half_recv"] = col.recv(src_rank=peer, group_name="half")
+            out["tree"] = col.allreduce({"w": card(inp["tw"][rank]),
+                                         "b": card(inp["tb"][rank])}, **g)
+            leaves = [v for v in out.values() for v in (
+                v.values() if isinstance(v, dict) else
+                v if isinstance(v, list) else [v])]
+            on_card = all(isinstance(v, torch.Tensor) and v.device == self.dev
+                          for v in leaves)
+
+            def host(v):
+                if isinstance(v, dict):
+                    return {k: host(w) for k, w in v.items()}
+                if isinstance(v, list):
+                    return [host(w) for w in v]
+                return v.cpu().numpy()
+            return {k: host(v) for k, v in out.items()}, on_card
+
+        def tree_broadcast(self, rank, group, reps):
+            import time
+
+            import torch
+
+            from ray_tpu_torch.models.gpt import GPTConfig, gpt_init
+            from ray_tpu_torch.util import collective as col
+            if self.tree is None:
+                model = gpt_init(GPTConfig.gpt2_small(), device=self.dev)
+                self.tree = {k: p.detach().to(torch.bfloat16)
+                             for k, p in model.named_parameters()}
+            times = []
+            torch.cuda.reset_peak_memory_stats(self.dev)
+            base = torch.cuda.memory_allocated(self.dev)
+            for i in range(reps + 1):
+                col.barrier(group_name=group)
+                t0 = time.perf_counter()
+                got = col.broadcast(self.tree if rank == 0 else None,
+                                    src_rank=0, group_name=group)
+                torch.cuda.synchronize(self.dev)
+                times.append(1e3 * (time.perf_counter() - t0))
+                if i == 0:   # the first broadcast's peak, its result in it
+                    peak = torch.cuda.max_memory_allocated(self.dev) - base
+            same = list(got) == list(self.tree) and all(
+                torch.equal(got[k].to(self.dev), v)
+                for k, v in self.tree.items())
+            return {"ms": times[1:], "same": same, "peak": peak,
+                    "bytes": sum(v.numel() * v.element_size()
+                                 for v in self.tree.values()),
+                    "params": sum(v.numel() for v in self.tree.values()),
+                    "leaves": len(self.tree)}
+
+    ray_tpu.init(num_cpus=8, num_tpus=n)
+    try:
+        cls = ray_tpu.remote(num_cpus=1, num_gpus=1)(Member)
+        actors = [cls.remote(i) for i in range(n)]
+        where = ray_tpu.get([a.where.remote() for a in actors], timeout=300)
+
+        def used():
+            return ray_tpu.get([a.card_used.remote() for a in actors],
+                               timeout=60)
+        setup, card = {}, [used()]
+        for name, members, backend in (
+                ("all", actors, "nccl"), ("half", [actors[3], actors[2]],
+                                          "nccl")):
+            t0 = time.perf_counter()
+            create_collective_group(members, len(members),
+                                    list(range(len(members))),
+                                    backend=backend, group_name=name,
+                                    runtime=ray_tpu)
+            setup[name] = 1e3 * (time.perf_counter() - t0)
+            card.append(used())
+        cases = ray_tpu.get([a.cases.remote(r, inp, half_rank)
+                             for r, a in enumerate(actors)], timeout=300)
+        nccl = ray_tpu.get([a.tree_broadcast.remote(r, "all", 5)
+                            for r, a in enumerate(actors)], timeout=300)
+        t0 = time.perf_counter()
+        create_collective_group(actors, n, list(range(n)), backend="gloo",
+                                group_name="host", runtime=ray_tpu)
+        setup["host"] = 1e3 * (time.perf_counter() - t0)
+        gloo = ray_tpu.get([a.tree_broadcast.remote(r, "host", 3)
+                            for r, a in enumerate(actors)], timeout=600)
+        for a in actors:
+            ray_tpu.kill(a)
+    finally:
+        ray_tpu.shutdown()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+
+    def summary(runs):
+        ms = statistics.median(max(r["ms"][i] for r in runs)
+                               for i in range(len(runs[0]["ms"])))
+        return ms, runs[0]["bytes"] / ms / 1e6
+    (nccl_ms, nccl_gbs), (gloo_ms, gloo_gbs) = summary(nccl), summary(gloo)
+    tree = nccl[0]
+    print(f"\n[collective] {len(smi)} cards: {smi}")
+    print(f"[collective] actors: {where}")
+    print(f"[collective] create_collective_group wall ms: NCCL world 4 "
+          f"{setup['all']:.1f}, NCCL world 2 {setup['half']:.1f}, gloo "
+          f"world 4 {setup['host']:.1f}; card bytes in use per rank (NCCL's "
+          f"own included) added by the world-4 group "
+          f"{[b - a for a, b in zip(card[0], card[1])]}, by the world-2 "
+          f"group {[b - a for a, b in zip(card[1], card[2])]}; allocator "
+          f"peak of one NCCL broadcast per rank (result included) "
+          f"{[r['peak'] for r in nccl]}")
+    print(f"[collective] GPT-2 small's parameter tree ({tree['leaves']} "
+          f"leaves, {tree['params']} parameters, {tree['bytes']} bytes bf16)"
+          f" broadcast from rank 0 to 3 ranks ({3 * tree['bytes']} bytes "
+          f"delivered): NCCL {nccl_ms:.3f} ms, {nccl_gbs:.1f} GB/s "
+          f"(bytes / time); gloo {gloo_ms:.1f} ms, {gloo_gbs:.2f} GB/s "
+          f"(per rank: NCCL {[r['ms'] for r in nccl]}, gloo "
+          f"{[r['ms'] for r in gloo]})")
+    assert len({w["pid"] for w in where} | {os.getpid()}) == n + 1
+    assert len({w["uuid"] for w in where}) == n
+    assert [w["device"] for w in where] == [f"cuda:{i}" for i in range(n)]
+    assert all(on_card for _, on_card in cases)
+    outs = [out for out, _ in cases]
+    total = sum(inp["x"])
+    for r, out in enumerate(outs):
+        np.testing.assert_allclose(out["allreduce"], total, rtol=1e-12)
+        np.testing.assert_array_equal(out["max"], np.maximum.reduce(inp["x"]))
+        np.testing.assert_array_equal(out["bcast"], inp["b"])
+        np.testing.assert_array_equal(
+            np.concatenate(out["allgather"]),
+            np.concatenate([inp["ints"][i][:i + 1] for i in range(n)]))
+        np.testing.assert_allclose(
+            out["rs"], np.array_split(sum(inp["rs"]), n)[r], rtol=1e-12)
+        if r == 3:
+            np.testing.assert_allclose(out["reduce"], total, rtol=1e-12)
+        else:
+            np.testing.assert_array_equal(out["reduce"], inp["x"][r])
+        np.testing.assert_array_equal(out["sym"], inp["sym"][r ^ 1])
+        np.testing.assert_array_equal(out["ring"], inp["sym"][(r - 1) % n])
+        np.testing.assert_allclose(out["tree"]["w"], sum(inp["tw"]),
+                                   rtol=1e-12)
+        np.testing.assert_allclose(out["tree"]["b"], sum(inp["tb"]),
+                                   rtol=1e-12)
+        if r in half_rank:
+            np.testing.assert_array_equal(out["half"],
+                                          inp["half"][2] + inp["half"][3])
+            np.testing.assert_array_equal(out["half_recv"],
+                                          inp["half"][5 - r])
+    np.testing.assert_array_equal(outs[1]["recv"], inp["msg"])
+    assert all(r["same"] for r in nccl + gloo)

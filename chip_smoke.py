@@ -7,9 +7,12 @@ Phases, each of which raises on failure:
   (b) build the CUDA kernels from ray_tpu_torch/csrc with nvcc;
   (c) hold each kernel against its plain PyTorch version on the card, at
       the main-path shape (B·H 96, also the MoE phase's), the GPT-2-medium
-      shape (B·H 128) and at small shapes (head_dim 16-128, causal on and
-      off, seq_q < seq_k and seq_q > seq_k, ragged tiles, rows with no key
-      or only masked keys, fp32 and bf16);
+      shape (B·H 128), phase (s)'s shape (B·H 128, head dim 80) and at
+      small shapes (head dims 16-256, the compiled widths and widths
+      padded to them, 77 among them; causal on and off, seq_q < seq_k and
+      seq_q > seq_k, ragged tiles, rows with no key or only masked keys;
+      fp32, bf16 and fp16; B·H 70000), each with the design and padded
+      width that ran it;
   (d) GPT-2-small gpt_forward at 8x1024: flash attention against the
       reference attention on the same weights;
   (e) the main path: AdamW(3e-4) steps of GPT-2 small (full remat) at
@@ -23,7 +26,8 @@ Phases, each of which raises on failure:
   (f) each kernel timed with CUDA events beside its plain version and
       PyTorch's scaled_dot_product_attention (forward for K1, backward
       alone for K2 and K3, forward+backward printed beside; timed only
-      here, the port never calls it);
+      here, the port never calls it), at the main shape and at phase (s)'s
+      (B·H 128, S 1024, head dim 80, bf16, causal);
   (i) GPT-2 small with MoE (4 experts, top-2, full remat) through the same
       entry points: launches, losses, the aux loss, the routing flips
       between flash and reference attention, and the step-0 gate against
@@ -126,6 +130,13 @@ Phases, each of which raises on failure:
       create_collective_group over the in-process runtime (world 1, and
       world 2, which must raise); the ms of an allreduce and a broadcast of
       GPT-2 small's bf16 parameter tree on the group of one;
+  (s) the port's GPT at StableLM-3B's published widths (d_model 2560, 32
+      heads of 80, 32 layers, d_ff 6912, vocab 50304: about 2.80 B
+      parameters) through (e)'s entry points on the card, bf16 over fp32
+      masters, remat full, batch [4, 1024]: step 0 against reference
+      attention under (e)'s gate with its controls, five steps with
+      64/32/32 launches each, finite falling losses, step ms, peak memory
+      and K1-K3's share of a profiled step;
   (g) one line {"kernels": [...]} (launches from the main path, e);
   (h) last line {"ok": true, "device": {...}}.
 
@@ -183,7 +194,10 @@ SEED = 0
 # dS is, bounds the two sides' difference there. In fp32 the CUDA-core
 # kernels hold to the relative term alone, which stays their bound
 # (PERF.md).
-RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+# fp16 keeps 3 more bits than bf16: its ulp is 2^-10 relative, and the
+# same analysis holds with that unit, the dP term included.
+RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7,
+        torch.float16: 2.0 ** -10}
 FP32_UNIT = 2.0 ** -23
 LSE_ATOL = 1e-4
 # GPT-2 small in bf16, flash vs reference attention on the same weights:
@@ -329,8 +343,8 @@ def check_case(bh, sq, sk, d, dtype, causal, bq, bk, gen) -> dict:
     mag = _magnitudes(q, k, v, do, lse_ref, delta, causal, scale, bq, bk)
     rtol = RTOL[dtype]
     lse_err = _max_err(lse, lse_ref)
-    bf16 = dtype == torch.bfloat16   # the dP term (see RTOL)
-    dq_sum, dk_sum = (mag["dq_sum"], mag["dk_sum"]) if bf16 else (0.0, 0.0)
+    low = dtype != torch.float32   # bf16 and fp16: the dP term (see RTOL)
+    dq_sum, dk_sum = (mag["dq_sum"], mag["dk_sum"]) if low else (0.0, 0.0)
     pairs = {"flash_fwd": [(o, o_ref, mag["o"], 0.0)],
              "flash_bwd_dq": [(dq, dq_ref, mag["dq"], dq_sum)],
              "flash_bwd_dkv": [(dk, dk_ref, mag["dk"], dk_sum),
@@ -367,11 +381,33 @@ SMALL_CASES = [
     (2, 96, 224, 128, torch.bfloat16, False, 32, 32),
     (2, 96, 32, 64, torch.bfloat16, True, 32, 32),      # rows with no keys
     (8, 1024, 1024, 128, torch.bfloat16, True, 128, 128),
+    # Head dims between and above the compiled widths, padded on the card
+    # to the next of 16/32/64/128/256 (bf16 33-128: the tensor cores); 77
+    # is not a multiple of 8, so the tensor-core loads go element by
+    # element and the stores column by column.
+    (4, 128, 128, 48, torch.bfloat16, True, 64, 64),
+    (2, 160, 96, 80, torch.bfloat16, True, 32, 32),     # ragged 64-tiles
+    (2, 64, 32, 80, torch.bfloat16, True, 64, 32),      # masked rows: mean V
+    (2, 96, 32, 96, torch.bfloat16, True, 32, 32),      # rows with no keys
+    (2, 96, 224, 112, torch.bfloat16, False, 32, 32),
+    (2, 128, 384, 77, torch.bfloat16, True, 128, 128),  # seq_q < seq_k
+    (2, 160, 96, 256, torch.bfloat16, True, 32, 32),
+    (2, 64, 32, 256, torch.bfloat16, True, 64, 32),     # masked rows: mean V
+    (2, 128, 128, 24, torch.float32, True, 64, 64),
+    (2, 96, 224, 80, torch.float32, False, 32, 32),
+    (2, 160, 96, 256, torch.float32, True, 32, 32),     # ragged 32-tiles
+    (2, 96, 32, 256, torch.float32, True, 32, 32),      # rows with no keys
+    (4, 128, 128, 64, torch.float16, True, 64, 64),
+    (2, 160, 96, 80, torch.float16, True, 32, 32),
+    (2, 64, 32, 80, torch.float16, True, 64, 32),       # masked rows: mean V
+    # B·H above the 65535 that blockIdx.y could hold
+    (70000, 16, 16, 64, torch.bfloat16, True, 16, 16),
 ]
 
 
 def phase_kernels() -> dict:
     """Every case is run and printed; then any disagreement raises."""
+    from ray_tpu_torch.ops import attention as A
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     failed = []
@@ -389,8 +425,10 @@ def phase_kernels() -> dict:
 
     for case in SMALL_CASES:
         bh, sq, sk, d, dt, causal, bq, bk = case
+        design, dp = A.kernel_route(dt, d)
         run(case, f"bh={bh} sq={sq} sk={sk} d={d} {str(dt)[6:]} "
-                  f"causal={causal} blocks=({bq},{bk})")
+                  f"causal={causal} blocks=({bq},{bk}) [{design}, d "
+                  f"padded to {dp}]")
     m = MAIN
     bh = m["batch"] * m["heads"]
     res = run((bh, m["seq"], m["seq"], m["head_dim"], m["dtype"], True,
@@ -405,10 +443,18 @@ def phase_kernels() -> dict:
     run((bh, m["seq"], m["seq"], m["head_dim"], m["dtype"], True, 128, 128),
         f"pp microbatch shape bh={bh} s={m['seq']} d={m['head_dim']} "
         f"bf16 causal")
+    # Phase (s): StableLM-3B's widths, head dim 80, batch 4.
+    s = STABLELM
+    bh = S_BATCH * s["n_heads"]
+    run((bh, s["max_seq"], s["max_seq"], s["d_model"] // s["n_heads"],
+         torch.bfloat16, True, 128, 128),
+        f"stablelm-3b shape bh={bh} s={s['max_seq']} "
+        f"d={s['d_model'] // s['n_heads']} bf16 causal")
     log(f"[c] tolerance: |kernel - plain| <= rtol (|plain| + |W||X|), rtol "
-        f"fp32 {RTOL[torch.float32]:.0e} bf16 2^-7, plus for bf16 dQ and "
-        f"dK p |dO||V|^T D 2^-22 through |K| and |Q|; |lse - plain| <= "
-        f"{LSE_ATOL:.0e}; ratio = max |kernel - plain| / tolerance")
+        f"fp32 {RTOL[torch.float32]:.0e} bf16 2^-7 fp16 2^-10, plus for "
+        f"bf16 and fp16 dQ and dK p |dO||V|^T D 2^-22 through |K| and |Q|; "
+        f"|lse - plain| <= {LSE_ATOL:.0e}; ratio = max |kernel - plain| / "
+        f"tolerance")
     if failed:
         raise AssertionError("kernels disagree with their plain versions: "
                              + "; ".join(failed))
@@ -421,12 +467,8 @@ def phase_kernels() -> dict:
 # ---------------------------------------------------------------------------
 
 def _models(cfg):
-    from ray_tpu_torch.models import gpt_init
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED)
-    flash = gpt_init(cfg, device="cuda", generator=gen)
-    ref = gpt_init(dataclasses.replace(cfg, attention="reference"),
-                   device="cuda", generator=gen)
+    flash = _seeded(cfg)
+    ref = _seeded(dataclasses.replace(cfg, attention="reference"))
     ref.load_state_dict(flash.state_dict())
     return flash, ref
 
@@ -563,14 +605,27 @@ def _moe_routing(model, record=None, replay=None):
         G._route, G._switch_aux = route, switch_aux
 
 
+def _seeded(cfg):
+    """The model with SEED's weights on the card (as ``_models`` draws
+    them)."""
+    from ray_tpu_torch.models import gpt_init
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    return gpt_init(cfg, device="cuda", generator=gen)
+
+
 def _step0(cfg, state_dict, batch, attention=None, record=None,
            replay=None, strategy="dp"):
-    """Step 0 from ``state_dict``, with the model's flash (or ring)
-    attention replaced by ``attention`` where given, and MoE routing
-    recorded or replayed: (loss, grad_norm)."""
+    """Step 0 from ``state_dict`` (None: SEED's weights, drawn afresh),
+    with the model's flash (or ring) attention replaced by ``attention``
+    where given, and MoE routing recorded or replayed: (loss,
+    grad_norm)."""
     from ray_tpu_torch.models import gpt as G
-    model = G.gpt_init(cfg, device="cuda")
-    model.load_state_dict(state_dict)
+    if state_dict is None:
+        model = _seeded(cfg)
+    else:
+        model = G.gpt_init(cfg, device="cuda")
+        model.load_state_dict(state_dict)
     name = "ring_attention" if cfg.attention == "ring" else "flash_attention"
     saved = getattr(G, name)
     if attention is not None:
@@ -3110,6 +3165,92 @@ def phase_collectives() -> None:
 
 
 # ---------------------------------------------------------------------------
+# (s) StableLM-3B's widths: head dim 80
+# ---------------------------------------------------------------------------
+
+# stabilityai/stablelm-3b-4e1t config.json: hidden_size 2560,
+# num_attention_heads 32 (head dim 80), num_hidden_layers 32,
+# intermediate_size 6912, vocab_size 50304; in this repo's GPT family
+# (RoPE over the whole head, RMSNorm, SwiGLU), not StableLM's own layer
+# details (partial rotary, LayerNorm).
+STABLELM = dict(d_model=2560, n_heads=32, n_layers=32, d_ff=6912,
+                vocab_size=50304, max_seq=1024)
+S_BATCH = 4
+
+
+def phase_stablelm() -> None:
+    """(s) The port's GPT at StableLM-3B's widths (about 2.80 B parameters,
+    head dim 80: K1-K3 padded to 128 on the tensor cores) trained on one
+    card through (e)'s entry points (build_mesh -> init_train_state ->
+    make_train_step, "dp"), bf16 activations over fp32 masters, remat
+    full, batch [4, 1024], AdamW(3e-4): step 0 against the same step with
+    reference attention under (e)'s gate, which the two controls must
+    fail; five steps with 2L/L/L launches each (64/32/32), finite and
+    falling losses; step ms, peak memory beside its reckoning, and one
+    profiled step's device time and K1-K3's share. Weights drawn afresh
+    from SEED for each run (no second copy held)."""
+    from ray_tpu_torch.models import GPTConfig, count_params
+    from ray_tpu_torch.ops.attention import KERNELS, kernel_route
+    t0 = time.perf_counter()
+    cfg = GPTConfig(**STABLELM)
+    seq = cfg.max_seq
+    batch = {"tokens": _tokens(cfg, S_BATCH, seq + 1)}
+    design, dp = kernel_route(cfg.dtype, cfg.head_dim)
+    ref = _step0(dataclasses.replace(cfg, attention="reference"), None, batch)
+    torch.cuda.empty_cache()
+    controls = {}
+    for name, fn in CONTROLS:
+        controls[name] = _step0(cfg, None, batch, fn)
+        torch.cuda.empty_cache()
+    model = _seeded(cfg)
+    n = count_params(model)
+    # fp32 weights, gradients and AdamW's two moments: 16 bytes a
+    # parameter; with full remat the activations kept are one bf16 [B, S,
+    # d] per layer, plus one layer's recompute and the loss's chunks.
+    state_gb = 16 * n / 1e9
+    log(f"[s] stablelm-3b widths: {n:,} params, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.head_dim} (K1-K3 on the {design}, "
+        f"padded to {dp}), {cfg.n_layers} layers, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}; batch {S_BATCH}x{seq}, remat full, AdamW(3e-4); "
+        f"reckoned peak: {state_gb:.1f} GB of weights, gradients and "
+        f"moments plus a few GB of activations")
+    for kern in KERNELS.values():
+        kern.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, times, counts = _run_steps(model, STEPS, batch)
+    launches = {k: kern.launches for k, kern in KERNELS.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for i in range(STEPS):
+        log(f"[s] flash step {i}: loss {losses[i]:.5f} grad_norm "
+            f"{norms[i]:.5f} {1e3 * times[i]:.1f} ms launches {counts[i]}")
+    step_ms = 1e3 * statistics.median(times[1:])
+    log(f"[s] flash: step {step_ms:.1f} ms (median of steps 1-{STEPS - 1}, "
+        f"host clock), {S_BATCH * seq / step_ms * 1e3:,.0f} tok/s, peak "
+        f"memory {peak_gb:.1f} GB (reckoned {state_gb:.1f} GB + "
+        f"activations); launches over {STEPS} steps: {launches}")
+    expected = _expected_launches(cfg)
+    bad = [i for i, c in enumerate(counts) if c != expected]
+    if bad:
+        raise AssertionError(f"stablelm-3b launches {counts} != {expected}")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"stablelm-3b: non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"stablelm-3b: loss did not fall: {losses}")
+    if not _gate("s", losses[0], norms[0], ref, "flash vs reference"):
+        raise AssertionError("stablelm-3b: step 0 differs from the "
+                             "reference step")
+    passed = [name for name, res in controls.items()
+              if _gate("s", *res, ref, f"control ({name}) vs reference")]
+    if passed:
+        raise AssertionError(f"stablelm-3b: the step-0 gate passes wrong "
+                             f"attention: {passed}")
+    _profile_step(model, batch, "s", "stablelm-3b step", top=5)
+    del model
+    torch.cuda.empty_cache()
+    log(f"[s] phase (s) took {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # (f) kernel timing
 # ---------------------------------------------------------------------------
 
@@ -3147,11 +3288,15 @@ def _bound_ms(name, bh, s, d, dtype) -> tuple:
             "operations", nbytes, flops)
 
 
-def phase_timing() -> dict:
+def phase_timing(m=MAIN, label="main shape") -> dict:
+    """K1-K3 and their plain versions and SDPA timed at ``m``'s shape
+    (batch, heads, seq, head_dim, dtype; causal)."""
     from ray_tpu_torch.ops import attention as A
-    m = MAIN
     b, h, s, d, dt = m["batch"], m["heads"], m["seq"], m["head_dim"], m["dtype"]
     bh = b * h
+    design, dp = A.kernel_route(dt, d)
+    log(f"[f] {label}: B·H {bh}, S {s}, D {d}, {str(dt)[6:]}, causal; "
+        f"K1-K3 on the {design}, D padded to {dp}")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 2)
     q, k, v, do = _inputs(bh, s, s, d, dt, gen)
@@ -3192,7 +3337,8 @@ def phase_timing() -> dict:
     lib = {"flash_fwd": _time_ms(sdpa_fwd, flush)}
     lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = _time_ms(sdpa_bwd, flush)
     fwd_bwd = _time_ms(sdpa_fwd_bwd, flush)
-    log(f"[f] scaled_dot_product_attention: forward {lib['flash_fwd']:.3f} "
+    log(f"[f] {label} scaled_dot_product_attention: forward "
+        f"{lib['flash_fwd']:.3f} "
         f"ms, backward alone {lib['flash_bwd_dq']:.3f} ms, forward+backward "
         f"{fwd_bwd:.3f} ms")
     out = {}
@@ -3205,8 +3351,9 @@ def phase_timing() -> dict:
         bound, by, nbytes, flops = _bound_ms(name, bh, s, d, dt)
         out[name] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
                          library_ms=lib[name], bound_ms=bound, bound_by=by)
-        log(f"[f] {name}: kernel {k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/"
-            f"{p2:.3f} ms, {LIBRARY_CALLS[name]} {lib[name]:.3f} ms, bound "
+        log(f"[f] {label} {name}: kernel {k1:.3f}/{k2:.3f} ms, plain "
+            f"{p1:.3f}/{p2:.3f} ms, {LIBRARY_CALLS[name]} {lib[name]:.3f} "
+            f"ms, bound "
             f"{bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, "
             f"{flops / 1e9:.2f} GFLOP)")
     for n, kern in A.KERNELS.items():
@@ -3232,6 +3379,10 @@ def main() -> int:
     phase_forward()
     launches, e_step0, e_step_ms = phase_train()
     timing = phase_timing()
+    phase_timing(dict(batch=S_BATCH, heads=STABLELM["n_heads"],
+                      seq=STABLELM["max_seq"],
+                      head_dim=STABLELM["d_model"] // STABLELM["n_heads"],
+                      dtype=torch.bfloat16), "stablelm-3b shape")
     phase_moe()
     phase_medium()
     phase_strategies(e_step0)
@@ -3242,14 +3393,15 @@ def main() -> int:
     phase_harness(e_step_ms)
     phase_entry_points(algo_ms["PPO"])
     phase_collectives()
+    phase_stablelm()
     kernels = [dict(name=n, route="cuda", source=SOURCES[n],
                     replaces=REPLACES[n],
                     launches=launches[n], max_abs_err=errs[n],
                     library=LIBRARY_CALLS[n], **timing[n])
                for n in REPLACES]
     log(f"[g] total {time.perf_counter() - t_start:.1f} s on {dev['smi']} "
-        f"(the script before phase (r): 354.3 s on an NVIDIA H100 80GB "
-        f"HBM3 at 700.00 W, PERF.md run Q5)")
+        f"(the script before phase (s): 382.6 s on an NVIDIA H100 80GB "
+        f"HBM3 at 700.00 W, PERF.md run R8)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}),

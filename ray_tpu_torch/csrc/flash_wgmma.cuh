@@ -1,7 +1,7 @@
 // Tensor-core flash attention for Hopper (sm_90a): K1 (forward), K2 (dQ)
-// and K3 (dK/dV) in bf16 at head dims 64 and 128. Included by
-// flash_attention.cu, whose header states the contract; this file holds
-// the design.
+// and K3 (dK/dV) in bf16 at head dims 33 to 128, compiled at D = 64 and
+// 128. Included by flash_attention.cu, whose header states the contract;
+// this file holds the design.
 //
 // One warpgroup (128 threads) per block and per 64-row output tile. Every
 // product is a `wgmma.mma_async` m64n64k16 with bf16 operands and fp32
@@ -16,6 +16,16 @@
 // the next tile streams in while the current one is multiplied. Ragged
 // edges are zero-filled by the copy (src-size 0) and masked per element
 // in the accumulator's coordinates.
+//
+// A head dim d below D (d 80 on D 128; the kernels' kPad instances, while
+// d = D takes instances whose row stride is the constant D, as before
+// padding) is padded in shared memory, never in global memory: the 16-byte chunks at columns d..D are zero-filled
+// (cp.async with src-size 0), so every tile is whole 64-column swizzle
+// atoms as the descriptors assume, and stores skip columns d..D. Where d
+// is not a multiple of 8, rows do not start on a 16-byte boundary; the
+// loads then go element by element through registers into the same
+// swizzled chunks (a generic-proxy store, made visible to wgmma by the
+// same proxy fence as the cp.async data).
 //
 // wgmma m64nNk16 fp32 accumulator layout (PTX ISA, "wgmma register
 // fragments"): thread t = 32 w + lane of the warpgroup holds, in register
@@ -53,22 +63,43 @@ __device__ __forceinline__ uint32_t chunk_offset(int r, int cb) {
   return (cb >> 3) * kBlockBytes + r * 128 + (((cb & 7) ^ (r & 7)) << 4);
 }
 
-// Rows [row0, row0 + 64) of a [seq, D] bf16 matrix into the swizzled tile
-// at shared address `dst`, asynchronously; rows past `seq` become zeros.
+// Rows [row0, row0 + 64) of a [seq, d] bf16 matrix into the swizzled
+// [64][D] tile at shared address `dst`: rows past `seq` and columns past
+// `d` become zeros. Asynchronous (cp.async) when d is a multiple of 8;
+// else synchronous, element by element.
 template <int D>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* src, int row0,
-                                          int seq, int tid) {
+                                          int seq, int d, int tid) {
   constexpr int kChunks = D / 8;
+  const bool vec = (d & 7) == 0;
+  const uint16_t* bits = reinterpret_cast<const uint16_t*>(src);
 #pragma unroll
   for (int it = 0; it < kRows * kChunks / kThreads; ++it) {
     const int i = tid + it * kThreads, r = i / kChunks, cb = i % kChunks;
-    const int g = row0 + r;
-    const __nv_bfloat16* p = src + (size_t)(g < seq ? g : 0) * D + cb * 8;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     dst + chunk_offset(r, cb)),
-                 "l"(p), "r"(g < seq ? 16 : 0)
-                 : "memory");
+    const int g = row0 + r, c0 = 8 * cb;
+    const uint32_t at = dst + chunk_offset(r, cb);
+    if (vec) {
+      const bool in = g < seq && c0 < d;
+      const __nv_bfloat16* p = src + (in ? (size_t)g * d + c0 : 0);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       at),
+                   "l"(p), "r"(in ? 16 : 0)
+                   : "memory");
+    } else {
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = c0 + 2 * e;
+        const size_t at_g = (size_t)g * d + c;
+        const uint32_t lo = g < seq && c < d ? bits[at_g] : 0u;
+        const uint32_t hi = g < seq && c + 1 < d ? bits[at_g + 1] : 0u;
+        w[e] = lo | (hi << 16);
+      }
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(at),
+                   "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
+                   : "memory");
+    }
   }
 }
 
@@ -202,6 +233,18 @@ __device__ __forceinline__ void store_bf16x2(__nv_bfloat16* p, float lo,
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
 }
 
+// Columns col and col + 1 of a row of d columns: the pair at once where
+// both exist and d is even (4-byte aligned), each alone otherwise.
+__device__ __forceinline__ void store_cols(__nv_bfloat16* row, int col,
+                                           int d, float lo, float hi) {
+  if ((d & 1) == 0 && col + 1 < d) {
+    store_bf16x2(row + col, lo, hi);
+    return;
+  }
+  if (col < d) row[col] = __float2bfloat16(lo);
+  if (col + 1 < d) row[col + 1] = __float2bfloat16(hi);
+}
+
 // Shared memory: the caller adds 1024 bytes so the tiles can start on a
 // 1024-byte boundary, where the swizzle atoms must lie.
 __device__ __forceinline__ uint32_t aligned_base(const uint8_t* raw) {
@@ -217,14 +260,15 @@ __device__ __forceinline__ uint32_t aligned_base(const uint8_t* raw) {
 template <int D>
 constexpr size_t fwd_smem_bytes() { return 5 * kTileBytes<D> + 1024; }
 
-template <int D>
+template <int D, bool kPad>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                    int seq_q, int seq_k, float scale, int causal,
-                    int block_q, int block_k) {
+                    int d_arg, int seq_q, int seq_k, float scale,
+                    int causal, int block_q, int block_k) {
+  const int d = kPad ? d_arg : D;  // kPad: head dim d below D, padded
   static_assert(kFwdKeyTile == kRows, "one n64 product per key tile");
   constexpr int TB = kTileBytes<D>, NB = D / 64;
   extern __shared__ uint8_t smem_raw[];
@@ -233,8 +277,9 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, c = lane % 4;
-  const int bh = blockIdx.y, q0 = blockIdx.x * kRows;
-  const size_t qoff = (size_t)bh * seq_q * D, koff = (size_t)bh * seq_k * D;
+  const int n_rows = (seq_q + kRows - 1) / kRows;
+  const int bh = blockIdx.x / n_rows, q0 = (blockIdx.x % n_rows) * kRows;
+  const size_t qoff = (size_t)bh * seq_q * d, koff = (size_t)bh * seq_k * d;
   const int offset = seq_k - seq_q;
   const bool is_causal = causal != 0;
   const float scale2 = scale * kLog2e;
@@ -261,18 +306,20 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                                  block_q, block_k, is_causal);
   const int n_tiles = (k_end + kFwdKeyTile - 1) / kFwdKeyTile;
 
-  load_tile<D>(sQ, q + qoff, q0, seq_q, tid);
+  load_tile<D>(sQ, q + qoff, q0, seq_q, d, tid);
   if (n_tiles > 0) {
-    load_tile<D>(sK, k + koff, 0, seq_k, tid);
-    load_tile<D>(sV, v + koff, 0, seq_k, tid);
+    load_tile<D>(sK, k + koff, 0, seq_k, d, tid);
+    load_tile<D>(sV, v + koff, 0, seq_k, d, tid);
   }
   cp_commit();
 
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t & 1, k0 = t * kFwdKeyTile;
     if (t + 1 < n_tiles) {
-      load_tile<D>(sK + (st ^ 1) * TB, k + koff, k0 + kFwdKeyTile, seq_k, tid);
-      load_tile<D>(sV + (st ^ 1) * TB, v + koff, k0 + kFwdKeyTile, seq_k, tid);
+      load_tile<D>(sK + (st ^ 1) * TB, k + koff, k0 + kFwdKeyTile, seq_k, d,
+                   tid);
+      load_tile<D>(sV + (st ^ 1) * TB, v + koff, k0 + kFwdKeyTile, seq_k, d,
+                   tid);
     }
     cp_commit();
     cp_wait<1>();  // this tile's group has landed; the next one may fly
@@ -359,13 +406,14 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   for (int h = 0; h < 2; ++h) {
     if (row[h] >= seq_q) continue;
     const float li = l[h] == 0.f ? 1.f : l[h];
-    __nv_bfloat16* orow = o + qoff + (size_t)row[h] * D + 2 * c;
+    __nv_bfloat16* orow = o + qoff + (size_t)row[h] * d;
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        store_bf16x2(orow + nb * 64 + 8 * j, acc[nb][4 * j + 2 * h] / li,
-                     acc[nb][4 * j + 2 * h + 1] / li);
+        store_cols(orow, nb * 64 + 8 * j + 2 * c, d,
+                   acc[nb][4 * j + 2 * h] / li,
+                   acc[nb][4 * j + 2 * h + 1] / li);
     if (c == 0) {
       // m is in log2 units except for the NEG_INF of rows with no key.
       const float mn = m[h] == kNegInf ? kNegInf : m[h] * kLn2;
@@ -398,7 +446,7 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
 template <int D>
 constexpr size_t dq_smem_bytes() { return 6 * kTileBytes<D> + 1024; }
 
-template <int D>
+template <int D, bool kPad>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
@@ -406,8 +454,9 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ dout,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta,
-                       __nv_bfloat16* __restrict__ dq, int seq_q, int seq_k,
-                       float scale, int causal) {
+                       __nv_bfloat16* __restrict__ dq, int d_arg,
+                       int seq_q, int seq_k, float scale, int causal) {
+  const int d = kPad ? d_arg : D;
   constexpr int TB = kTileBytes<D>, NB = D / 64;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = aligned_base(smem_raw), sG = sQ + TB;
@@ -415,8 +464,10 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, c = lane % 4;
-  const int bh = blockIdx.y, q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
-  const size_t qoff = (size_t)bh * seq_q * D, koff = (size_t)bh * seq_k * D;
+  const int n_rows = (seq_q + kRows - 1) / kRows;
+  const int bh = blockIdx.x / n_rows;
+  const int q0 = (n_rows - 1 - (int)(blockIdx.x % n_rows)) * kRows;
+  const size_t qoff = (size_t)bh * seq_q * d, koff = (size_t)bh * seq_k * d;
   const size_t roff = (size_t)bh * seq_q;
   const int offset = seq_k - seq_q;
   const bool is_causal = causal != 0;
@@ -442,19 +493,19 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int k_end = is_causal ? min(seq_k, max(0, last + offset + 1)) : seq_k;
   const int n_tiles = (k_end + kRows - 1) / kRows;
 
-  load_tile<D>(sQ, q + qoff, q0, seq_q, tid);
-  load_tile<D>(sG, dout + qoff, q0, seq_q, tid);
+  load_tile<D>(sQ, q + qoff, q0, seq_q, d, tid);
+  load_tile<D>(sG, dout + qoff, q0, seq_q, d, tid);
   if (n_tiles > 0) {
-    load_tile<D>(sK, k + koff, 0, seq_k, tid);
-    load_tile<D>(sV, v + koff, 0, seq_k, tid);
+    load_tile<D>(sK, k + koff, 0, seq_k, d, tid);
+    load_tile<D>(sV, v + koff, 0, seq_k, d, tid);
   }
   cp_commit();
 
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t & 1, k0 = t * kRows;
     if (t + 1 < n_tiles) {
-      load_tile<D>(sK + (st ^ 1) * TB, k + koff, k0 + kRows, seq_k, tid);
-      load_tile<D>(sV + (st ^ 1) * TB, v + koff, k0 + kRows, seq_k, tid);
+      load_tile<D>(sK + (st ^ 1) * TB, k + koff, k0 + kRows, seq_k, d, tid);
+      load_tile<D>(sV + (st ^ 1) * TB, v + koff, k0 + kRows, seq_k, d, tid);
     }
     cp_commit();
     cp_wait<1>();
@@ -516,13 +567,14 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (row[h] >= seq_q) continue;
-    __nv_bfloat16* drow = dq + qoff + (size_t)row[h] * D + 2 * c;
+    __nv_bfloat16* drow = dq + qoff + (size_t)row[h] * d;
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        store_bf16x2(drow + nb * 64 + 8 * j, acc[nb][4 * j + 2 * h] * scale,
-                     acc[nb][4 * j + 2 * h + 1] * scale);
+        store_cols(drow, nb * 64 + 8 * j + 2 * c, d,
+                   acc[nb][4 * j + 2 * h] * scale,
+                   acc[nb][4 * j + 2 * h + 1] * scale);
   }
 }
 
@@ -538,7 +590,7 @@ constexpr size_t dkv_smem_bytes() {
   return 6 * kTileBytes<D> + 2 * 2 * kRows * 4 + 1024;
 }
 
-template <int D>
+template <int D, bool kPad>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
@@ -547,8 +599,9 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         __nv_bfloat16* __restrict__ dk,
-                        __nv_bfloat16* __restrict__ dv, int seq_q, int seq_k,
-                        float scale, int causal) {
+                        __nv_bfloat16* __restrict__ dv, int d_arg,
+                        int seq_q, int seq_k, float scale, int causal) {
+  const int d = kPad ? d_arg : D;
   constexpr int TB = kTileBytes<D>, NB = D / 64;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sK = aligned_base(smem_raw), sV = sK + TB;
@@ -558,8 +611,9 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, c = lane % 4;
-  const int bh = blockIdx.y, k0 = blockIdx.x * kRows;
-  const size_t qoff = (size_t)bh * seq_q * D, koff = (size_t)bh * seq_k * D;
+  const int n_keys = (seq_k + kRows - 1) / kRows;
+  const int bh = blockIdx.x / n_keys, k0 = (blockIdx.x % n_keys) * kRows;
+  const size_t qoff = (size_t)bh * seq_q * d, koff = (size_t)bh * seq_k * d;
   const size_t roff = (size_t)bh * seq_q;
   const int offset = seq_k - seq_q;
   const bool is_causal = causal != 0;
@@ -580,14 +634,14 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                                       : 0;
 
   auto load_q_tile = [&](int st, int q0) {
-    load_tile<D>(sQ + st * TB, q + qoff, q0, seq_q, tid);
-    load_tile<D>(sG + st * TB, dout + qoff, q0, seq_q, tid);
+    load_tile<D>(sQ + st * TB, q + qoff, q0, seq_q, d, tid);
+    load_tile<D>(sG + st * TB, dout + qoff, q0, seq_q, d, tid);
     const uint32_t r = sRows + st * 512;
     if (tid < kRows) load_row(r, lse + roff, q0, seq_q, tid);
     else load_row(r + 256, delta + roff, q0, seq_q, tid - kRows);
   };
-  load_tile<D>(sK, k + koff, k0, seq_k, tid);
-  load_tile<D>(sV, v + koff, k0, seq_k, tid);
+  load_tile<D>(sK, k + koff, k0, seq_k, d, tid);
+  load_tile<D>(sV, v + koff, k0, seq_k, d, tid);
   if (n_tiles > 0) load_q_tile(0, q_first);
   cp_commit();
 
@@ -668,15 +722,15 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (key[h] >= seq_k) continue;
-    const size_t at = koff + (size_t)key[h] * D + 2 * c;
+    const size_t at = koff + (size_t)key[h] * d;
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int i = 4 * j + 2 * h, col = nb * 64 + 8 * j;
-        store_bf16x2(dk + at + col, dk_acc[nb][i] * scale,
-                     dk_acc[nb][i + 1] * scale);
-        store_bf16x2(dv + at + col, dv_acc[nb][i], dv_acc[nb][i + 1]);
+        const int i = 4 * j + 2 * h, col = nb * 64 + 8 * j + 2 * c;
+        store_cols(dk + at, col, d, dk_acc[nb][i] * scale,
+                   dk_acc[nb][i + 1] * scale);
+        store_cols(dv + at, col, d, dv_acc[nb][i], dv_acc[nb][i + 1]);
       }
   }
 }

@@ -14,7 +14,11 @@ built or launched raises. Each wrapper counts its launches in
 ``KERNELS[name].launches``.
 
 Kernel layouts: q [BH, Sq, D], k/v [BH, Sk, D], lse/delta [BH, Sq] fp32.
-Public layouts: q, k, v are [batch, num_heads, seq, head_dim].
+Public layouts: q, k, v are [batch, num_heads, seq, head_dim]. The kernels
+take float32, bfloat16 and float16 at any head dim from 1 to
+MAX_HEAD_DIM and any B·H (``kernel_route`` says which design runs);
+above MAX_HEAD_DIM a CUDA tensor raises ValueError (ROADMAP R-13), while
+the plain versions on the CPU compute any head dim, as JAX's do.
 
 ``ring_attention`` splits the sequence over a mesh axis (K/V shards
 rotated around the ring by point-to-point ops); its blockwise partials are
@@ -40,8 +44,8 @@ from ray_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+MAX_HEAD_DIM = 256
 KERNEL_TILE = 64   # keys per step of K1: kTile and kFwdKeyTile in csrc/
 
 
@@ -194,21 +198,37 @@ KERNELS = {
 }
 
 
+def kernel_route(dtype: torch.dtype, head_dim: int) -> Tuple[str, int]:
+    """(design, padded head dim) of the kernels that take ``dtype`` at
+    ``head_dim``, as the library's dispatch decides: ("tensor cores", 64
+    or 128) for bf16 at 33-128, else ("CUDA cores", 16/32/64/128/256).
+    Needs the built library (the card's toolchain)."""
+    fn = _build.load_library("flash_attention").rtt_flash_route
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    r = fn(_DTYPES[dtype], int(head_dim))
+    if r == 0:
+        raise ValueError(f"no flash kernel takes {dtype} at head_dim "
+                         f"{head_dim}")
+    return ("tensor cores", -r) if r < 0 else ("CUDA cores", r)
+
+
 def _check_inputs(q, k, v, *extra) -> None:
     """Raise on what the kernels do not take."""
     if not (q.dim() == k.dim() == v.dim() == 3):
         raise ValueError("flash kernels take [BH, S, D] tensors")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash kernels take float32 or bfloat16 q/k/v of "
-                        f"one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if q.shape[-1] not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {q.shape[-1]} not in {_HEAD_DIMS}")
+        raise TypeError(f"flash kernels take float32, bfloat16 or float16 "
+                        f"q/k/v of one dtype, got {q.dtype}/{k.dtype}/"
+                        f"{v.dtype}")
+    if not 1 <= q.shape[-1] <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {q.shape[-1]} is above the flash "
+                         f"kernels' limit of {MAX_HEAD_DIM} (ROADMAP R-13)")
     if (k.shape != v.shape or q.shape[0] != k.shape[0]
             or q.shape[2] != k.shape[2]):
         raise ValueError(f"shape mismatch q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
-    if q.shape[0] > 65535 or min(q.shape[1], k.shape[1]) <= 0:
-        raise ValueError("flash kernels need 0 < BH <= 65535 and seq > 0")
+    if min(q.shape[0], q.shape[1], k.shape[1]) <= 0:
+        raise ValueError("flash kernels need BH > 0 and seq > 0")
     for t in (q, k, v, *extra):
         if t.device != q.device:
             raise ValueError("flash kernel inputs must share one device")

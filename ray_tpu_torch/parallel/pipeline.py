@@ -49,7 +49,6 @@ between stages as host arrays (``to_hop`` / ``from_hop``).
 
 from __future__ import annotations
 
-import copy
 from collections import deque
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -67,6 +66,7 @@ from ray_tpu_torch.ops.attention import flash_attention, mha_reference
 from ray_tpu_torch.parallel.mesh import Axis, Mesh, all_sum
 from ray_tpu_torch.parallel.tensor_parallel import (copy_to, reduce_from,
                                                     take_part)
+from ray_tpu_torch.util.held import held_result
 
 # The stacked weights of a layer, in the order _layer takes them, with the
 # dim of each per-layer weight that Megatron splits over 'tensor'.
@@ -402,6 +402,7 @@ class StagePipeline:
                 node = getattr(handle, method).bind(node)
         self.n_stages = len(stages)
         self.channel_depth = channel_depth
+        self._rt = rt
         self._in_process = rt is local_runtime
         self._dag = compiled.compile(
             node, channel_depth=channel_depth,
@@ -417,16 +418,19 @@ class StagePipeline:
     def run(self, inputs, timeout: Optional[float] = None) -> list:
         """Pipelined map over ``inputs``, outputs in input order, with at
         most ``channel_depth`` ticks uncollected. Over a runtime each
-        output is copied as it arrives: an output above a channel slot
-        reaches the caller as a view of object-store memory, which the
-        store reuses once the last stage lets the object go (ROADMAP
-        R-11), and ``run`` returns them all at the end."""
+        output is copied as it arrives, while the object it came in stays
+        held: an output above a channel slot reaches the caller as a view
+        of object-store memory, which the store reuses once the last stage
+        lets the object go (ROADMAP R-11), and ``run`` returns them all at
+        the end."""
         pending: deque = deque()
         out = []
 
         def collect():
-            value = pending.popleft().result(timeout)
-            out.append(value if self._in_process else copy.deepcopy(value))
+            ref = pending.popleft()
+            out.append(ref.result(timeout) if self._in_process
+                       else held_result(self._rt,
+                                        lambda: ref.result(timeout)))
 
         for x in inputs:
             if len(pending) >= self.channel_depth:

@@ -34,7 +34,6 @@ DAG of depth 1, with no replay.
 
 from __future__ import annotations
 
-import copy
 import threading
 import time
 from collections import deque
@@ -54,6 +53,7 @@ from ray_tpu_torch.rllib.learner import PPOLearner
 from ray_tpu_torch.train.worker_group import (_accelerator, required_attr,
                                               runtime_attr)
 from ray_tpu_torch.util import local_runtime
+from ray_tpu_torch.util.held import held_result
 
 _PLANE = "ray_tpu._private.object_plane"
 
@@ -328,9 +328,9 @@ class PodracerRun:
         # Bootstrap: actors start from the learner's version-1 weights
         # (constructor broadcast), so every gang samples the same policy
         # from tick 0.
-        self._version, weights = rt.get(
-            self.learner.control.remote(), timeout=120)
-        self._weights = self._held(weights)
+        ref = self.learner.control.remote()   # held while the copy is made
+        self._version, self._weights = self._held(
+            lambda: rt.get(ref, timeout=120))
         self._ctl_weights = self._fold_weights(self._weights)
         # Every member answers before the DAG takes them over: its pid,
         # device and card, actors first, the learner last.
@@ -348,14 +348,16 @@ class PodracerRun:
             patient_readers=True)
         self._export_span("podracer:compile", t0, time.time())
 
-    def _held(self, weights):
-        """A weight tree the handle keeps: over a runtime, a copy. A large
-        tree arrives as a view of object-store memory that the store
-        reuses once the writer lets the object go (ROADMAP R-11), and the
-        handle sends it again in later control tuples."""
-        if weights is None or self.in_process:
-            return weights
-        return copy.deepcopy(weights)
+    def _held(self, resolve):
+        """What ``resolve()`` gives (the learner's output and weight tree),
+        as the handle keeps it: over a runtime, a copy made while the
+        object it came in is still held. A large tree arrives as a view of
+        object-store memory that the store reuses once the writer lets
+        the object go (ROADMAP R-11), and the handle sends it again in
+        later control tuples."""
+        if self.in_process:
+            return resolve()
+        return held_result(self._rt, resolve)
 
     def _fold_weights(self, weights):
         """Route a weight tree into the control tuple: literal below the
@@ -391,10 +393,10 @@ class PodracerRun:
         new weight version into the next control tuple and the podracer
         metrics."""
         ref, t0 = self._pending.popleft()
-        out = ref.result(timeout)
+        out = self._held(lambda: ref.result(timeout))
         if out["version"] > self._version and out["weights"] is not None:
             self._version = out["version"]
-            self._weights = self._held(out["weights"])
+            self._weights = out["weights"]
             self._ctl_weights = self._fold_weights(self._weights)
             self._export_span("podracer:broadcast", t0, time.time(),
                               only_if_traced=True)

@@ -52,17 +52,27 @@ CUDA device, the one bound when the group was made. As in the reference:
   to each other before they receive; ``recv`` takes what the peer's next
   send to it sent, of any shape (a header of its shape, type and kind
   travels first). A send to this rank itself waits in the group's mailbox
-  for this rank's ``recv``. On a gloo group point to point goes over a
-  second gloo group of the members. On an NCCL group it goes over a group
-  of two for each direction between two members, each with its own
-  communicator, made when the group is made (``_links``), so that a
-  member's send never waits on the card behind its own receive, nor a
-  peer's receive behind that peer's send.
+  for this rank's ``recv``. Point to point goes over the host, as the
+  reference's mailboxes do: a gloo process group of the two members for
+  each direction between them (a link), on an NCCL group too, whose
+  tensors cross to the host and back. A link is made at its first use, by
+  both its ends (``_link``), each over a store connection of its own: the
+  sender's end on a thread that then sends this rank's messages to that
+  peer in order (``_Sender``), so that ``send`` returns at once even while
+  the link waits for the peer; the receiver's end in its first ``recv``.
+  A group that never sends makes none. NCCL pairs were dearer and
+  hazardous: made with the group, the six a rank at world 4 took most of
+  its 6.8 s and 3.4 GB a rank on H100s; made at first use, a pair's
+  communicator could not be made while the card ran another NCCL
+  transfer that waited on the peer, and four ranks hung (ROADMAP.md,
+  R-4).
 
-``destroy_collective_group`` shuts the group's process groups down in the
-order they were made, one order on every member: an NCCL communicator's
-shutdown waits for its peers, and four ranks that shut their pairs down
-in orders of their own hung there (ROADMAP.md, R-4).
+``destroy_collective_group`` waits for this rank's sends, then shuts the
+group's process groups down in one order on every member: the
+collectives' group, then the links that were made, by (source,
+destination). An NCCL communicator's shutdown waits for its peers, and
+four ranks that shut theirs down in orders of their own hung there
+(ROADMAP.md, R-4).
 
 All members of a group must call its collectives in the same order.
 """
@@ -73,6 +83,7 @@ import collections
 import datetime
 import importlib
 import pickle
+import queue
 import socket
 import threading
 from dataclasses import dataclass, field
@@ -115,16 +126,15 @@ class _GroupState:
     rank: int
     group: Any                       # the collectives
     device: torch.device
-    # Point to point: {peer: (process group, the peer's rank in it)}.
-    send_to: Dict[int, Tuple[Any, int]]
-    recv_from: Dict[int, Tuple[Any, int]]
-    # Every process group of the group, in the order they were made: one
-    # order on every member, the order destroy shuts them down in (module
-    # doc).
-    groups: List[Any]
+    meet: Any     # the store the group meets in, read under its name
     store: Any    # the group's own store, kept while it stands (rank 0:
                   # served; None: the default world's)
-    pending: List[Any] = field(default_factory=list)   # sends in flight
+    # Point to point: {(src, dst): the link's process group (src its rank
+    # 0, dst its rank 1)}, the links this rank has made; and the thread
+    # that sends to each peer this rank has sent to.
+    links: Dict[Tuple[int, int], Any] = field(default_factory=dict)
+    senders: Dict[int, "_Sender"] = field(default_factory=dict)
+    lock: Any = field(default_factory=threading.Lock)
     mailbox: Deque[Any] = field(default_factory=collections.deque)
 
 
@@ -225,10 +235,10 @@ def _rendezvous(world_size: int, rank: int, group_name: str,
 
 
 def _make_group(store, rank: int, size: int, backend: str,
-                device: torch.device, eager: bool = True):
+                device: torch.device):
     """A process group of ``size`` members over ``store``, made from the
-    store alone: nothing of the default world takes part. ``eager``: an
-    NCCL group's communicator is made here, not at its first op."""
+    store alone: nothing of the default world takes part. An NCCL group's
+    communicator is made here, not at its first op."""
     pg = dist.ProcessGroup(store, rank, size)
     if backend == "nccl":
         options = dist.ProcessGroupNCCL.Options()
@@ -243,43 +253,86 @@ def _make_group(store, rank: int, size: int, backend: str,
         kind = dist.ProcessGroup.BackendType.GLOO
     pg._set_default_backend(kind)
     pg._register_backend(torch.device(device.type), kind, impl)
-    if backend == "nccl" and eager:
+    if backend == "nccl":
         impl.eager_connect_single_device(device)
     return pg
 
 
-def _links(store, rank: int, size: int, backend: str, device: torch.device):
-    """Point to point: ({peer: (group, the peer's rank in it)} to send to,
-    the same to receive from, the groups in the order made). Gloo: one
-    group of the members. NCCL: a group of two for each direction between
-    two members, its communicator made here, in one order on every member
-    (src, then dst), so that no two members wait on each other; a send and
-    a receive between the same two members then run on communicators, and
-    streams, of their own."""
-    if backend == "gloo":
-        p2p = _make_group(dist.PrefixStore("p2p/", store), rank, size,
-                          "gloo", device)
-        links = {peer: (p2p, peer) for peer in range(size) if peer != rank}
-        return links, links, [p2p]
-    send_to, recv_from, made = {}, {}, []
-    for src in range(size):
-        for dst in range(size):
-            if src == dst or rank not in (src, dst):
+def _link(g: _GroupState, src: int, dst: int):
+    """The gloo process group of the link ``src`` -> ``dst`` (this rank one
+    of its ends), made at its first use; it waits for the other end to
+    make it too."""
+    key = (src, dst)
+    with g.lock:
+        pg = g.links.get(key)
+    if pg is None:
+        # A connection of the link's own to the store: a store client
+        # serves one request at a time, and a link waiting in it for its
+        # other end would hold up this rank's other links.
+        pg = _make_group(dist.PrefixStore(f"p2p/{src}-{dst}/",
+                                          g.meet.clone()),
+                         int(g.rank == dst), 2, "gloo", torch.device("cpu"))
+        with g.lock:
+            g.links[key] = pg
+    return pg
+
+
+class _Sender:
+    """This rank's messages to one peer, sent in order on a thread of
+    their own, which makes the link first: ``send`` queues and returns. A
+    marker (a ``threading.Event``) in the queue is set once every send
+    before it has been posted; ``flush`` then waits for them to be
+    received. After an error the rest are dropped and ``error`` holds
+    it."""
+
+    def __init__(self, g: _GroupState, dst: int):
+        self.g, self.dst = g, dst
+        self.queue: "queue.Queue[Any]" = queue.Queue()
+        self.error: Optional[BaseException] = None
+        self.works: List[Tuple[Any, torch.Tensor]] = []   # sends in flight
+        self.thread = threading.Thread(
+            target=self._run, daemon=True,
+            name=f"collective-send-{g.rank}-{dst}")
+        self.thread.start()
+
+    def _run(self) -> None:
+        pg = None
+        try:
+            pg = _link(self.g, self.g.rank, self.dst)
+        except BaseException as e:  # noqa: BLE001 — reported by flush
+            self.error = e
+        while True:
+            item = self.queue.get()
+            if item is None:
+                return
+            if isinstance(item, threading.Event):
+                item.set()
                 continue
-            pair = _make_group(dist.PrefixStore(f"p2p/{src}-{dst}/", store),
-                               int(rank == dst), 2, "nccl", device,
-                               eager=False)
-            made.append(pair)
-            # A first message makes the pair's point-to-point communicator.
-            first = torch.zeros(1, device=device)
-            if rank == src:
-                pair.send([first], 1, 0).wait()
-                send_to[dst] = (pair, 1)
-            else:
-                pair.recv([first], 0, 0).wait()
-                recv_from[src] = (pair, 0)
-    torch.cuda.synchronize(device)
-    return send_to, recv_from, made
+            if self.error is not None:
+                continue
+            try:
+                self.works = [(w, t) for w, t in self.works
+                              if not w.is_completed()]
+                for part in item:
+                    self.works.append((pg.send([part], 1, 0), part))
+            except BaseException as e:  # noqa: BLE001 — reported by flush
+                self.error = e
+
+    def flush(self) -> None:
+        """Wait until every message queued so far has been received."""
+        done = threading.Event()
+        self.queue.put(done)
+        done.wait()
+        if self.error is not None:
+            raise RuntimeError(f"collective send to rank {self.dst} "
+                               f"failed") from self.error
+        for work, _ in self.works:
+            work.wait()
+        self.works = []
+
+    def stop(self) -> None:
+        self.queue.put(None)
+        self.thread.join()
 
 
 def init_collective_group(world_size: int, rank: int,
@@ -305,10 +358,7 @@ def init_collective_group(world_size: int, rank: int,
         device = (torch.device("cuda", torch.cuda.current_device())
                   if backend == "nccl" else torch.device("cpu"))
         group = _make_group(store, rank, world_size, backend, device)
-        send_to, recv_from, made = _links(store, rank, world_size, backend,
-                                          device)
-        state = _GroupState(world_size, rank, group, device, send_to,
-                            recv_from, [group, *made], base)
+        state = _GroupState(world_size, rank, group, device, store, base)
     except BaseException:
         with here._groups_lock:
             here._groups.pop(group_name, None)
@@ -326,9 +376,14 @@ def destroy_collective_group(group_name: str = "default") -> None:
         here._served.pop(group_name, None)
     if state is None:
         return
-    _flush(state)
-    for pg in state.groups:
-        pg.shutdown()
+    try:
+        _flush(state)
+    finally:
+        for sender in state.senders.values():
+            sender.stop()
+    state.group.shutdown()
+    for key in sorted(state.links):
+        state.links[key].shutdown()
 
 
 def is_group_initialized(group_name: str = "default") -> bool:
@@ -356,9 +411,18 @@ def _group(group_name: str) -> _GroupState:
 
 def _flush(g: _GroupState) -> None:
     """Wait for this rank's sends in flight."""
-    for work, _ in g.pending:
-        work.wait()
-    g.pending.clear()
+    for sender in list(g.senders.values()):
+        sender.flush()
+
+
+def pair_links(group_name: str = "default") -> List[Tuple[int, int]]:
+    """The (source, destination) links this rank has made in the group,
+    once the sends it has queued are out, in the order
+    ``destroy_collective_group`` shuts them down."""
+    g = _group(group_name)
+    _flush(g)
+    with g.lock:
+        return sorted(g.links)
 
 
 # ---------------------------------------------------------------------------
@@ -575,12 +639,17 @@ def send(tensor, dst_rank: int, group_name: str = "default") -> None:
     if dst_rank == g.rank:
         g.mailbox.append((_to_tensor(tensor, g.device), _kind(tensor)))
         return
-    pg, peer = g.send_to[dst_rank]
-    t = _to_tensor(tensor, g.device)
-    h = _header(t, _kind(tensor), g.device)
-    g.pending = [(w, keep) for w, keep in g.pending if not w.is_completed()]
-    for part in (h, t):
-        g.pending.append((pg.send([part], peer, 0), part))
+    if not 0 <= dst_rank < g.world_size:
+        raise ValueError(f"dst_rank {dst_rank} out of range for world "
+                         f"{g.world_size}")
+    host = torch.device("cpu")
+    t = _to_tensor(tensor, host)
+    h = _header(t, _kind(tensor), host)
+    with g.lock:
+        sender = g.senders.get(dst_rank)
+        if sender is None:
+            sender = g.senders[dst_rank] = _Sender(g, dst_rank)
+    sender.queue.put((h, t))
 
 
 def recv(src_rank: int, group_name: str = "default"):
@@ -594,12 +663,16 @@ def recv(src_rank: int, group_name: str = "default"):
                 "posted to it")
         t, kind = g.mailbox.popleft()
         return _as_kind(t, kind)
-    pg, peer = g.recv_from[src_rank]
-    h = _header(None, _NUMPY, g.device)
-    pg.recv([h], peer, 0).wait()
-    t, kind = _from_header(h, g.device)
-    pg.recv([t], peer, 0).wait()
-    return _as_kind(t, kind)
+    if not 0 <= src_rank < g.world_size:
+        raise ValueError(f"src_rank {src_rank} out of range for world "
+                         f"{g.world_size}")
+    pg = _link(g, src_rank, g.rank)
+    host = torch.device("cpu")
+    h = _header(None, _NUMPY, host)
+    pg.recv([h], 0, 0).wait()
+    t, kind = _from_header(h, host)
+    pg.recv([t], 0, 0).wait()
+    return _as_kind(t.to(g.device) if kind == _TENSOR else t, kind)
 
 
 # ---------------------------------------------------------------------------

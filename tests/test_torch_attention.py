@@ -9,9 +9,11 @@ Tolerances in fp32: 2e-5 on forward values and 2e-4 on grads, the bounds
 TestAttention holds the Pallas kernels to against mha_reference. At causal
 seq_q > seq_k the first rows see no key; both flash paths give 0 there
 (mha_reference gives mean(V)), so those shapes compare the port only
-against JAX's flash_attention. In bf16 (test_flash_matches_jax_bf16) the
-bound is the one the card holds each kernel to against its plain version
-(chip_smoke.py's RTOL note).
+against JAX's flash_attention. In bf16 and fp16
+(test_flash_matches_jax_bf16) the bound is the one the card holds each
+kernel to against its plain version (chip_smoke.py's RTOL note). The head
+dims cover the kernels' compiled widths (16-128) and widths the card pads
+(48, 80, 96).
 """
 
 import re
@@ -74,6 +76,11 @@ CASES = [
     (96, 32, 16, True, 32, 32),     # seq_q > seq_k: 64 rows see no key
     (128, 64, 32, True, 64, 64),
     (64, 32, 16, True, 64, 32),     # masked rows inside a visited block
+    # head dims the card's kernels pad (48 to 64, 80 to 128)
+    (64, 64, 48, True, 32, 32),
+    (64, 128, 80, False, 32, 64),
+    (96, 32, 48, True, 32, 32),     # seq_q > seq_k: 64 rows see no key
+    (64, 32, 80, True, 64, 32),     # masked rows inside a visited block
 ]
 
 
@@ -88,28 +95,35 @@ def test_flash_matches_jax(jx, sq, sk, d, causal, bq, bk):
 
 
 # bf16 at the main path's head dims, where the card runs the tensor-core
-# kernels: (head_dim, causal) at seq 128, blocks 64.
-BF16_CASES = [(64, True), (64, False), (128, True), (128, False)]
-MAX_DIFFERING = 0.03   # share of bf16 elements not equal bit for bit
+# kernels, and at head dim 96 (padded to 128 there); fp16 at 64 and 80 (the
+# card's CUDA-core kernels): (head_dim, causal, dtype) at seq 128, blocks 64.
+BF16_CASES = [(64, True, "bfloat16"), (64, False, "bfloat16"),
+              (128, True, "bfloat16"), (128, False, "bfloat16"),
+              (96, True, "bfloat16"), (64, True, "float16"),
+              (80, True, "float16")]
+MAX_DIFFERING = 0.03   # share of elements not equal bit for bit
 
 
-@pytest.mark.parametrize("d,causal", BF16_CASES)
-def test_flash_matches_jax_bf16(jx, d, causal):
+@pytest.mark.parametrize("d,causal,dtype", BF16_CASES, ids=[
+    f"{d}-{c}" if t == "bfloat16" else f"{d}-{c}-{t}"
+    for d, c, t in BF16_CASES])
+def test_flash_matches_jax_bf16(jx, d, causal, dtype):
     """The plain versions, which the card holds the kernels to, round where
-    the Pallas kernels round: p to bf16 before P.V against the running max
-    of each 64-key block, P and dS to bf16 before dS.K, P^T.dO and dS^T.Q.
+    the Pallas kernels round: p to the input type (bf16 or fp16) before P.V
+    against the running max of each 64-key block, P and dS to it before
+    dS.K, P^T.dO and dS^T.Q.
 
-    Tolerance, element by element: |port - jax| <= 2^-7 (|jax| + |W||X|)
-    + E, with W X the output's defining product in absolute values (P V,
-    dS K, dS^T Q, P^T dO) and E the bound of dP's fp32 summation order for
-    dQ and dK, as chip_smoke.check_case holds a kernel to its plain
-    version. The two sides round at the same points and differ only in
-    fp32 summation order, which can flip one bf16 rounding (one ulp, 2^-7
-    relative) of an output element or of a weight of P or dS. One ulp of
-    each element alone does not hold: a flipped weight moves an element
-    that is small by cancellation by many of its ulps, and in a row that
-    sees one key dS is fp32 rounding noise (dP - delta cancels), which E
-    covers.
+    Tolerance, element by element: |port - jax| <= rtol (|jax| + |W||X|)
+    + E, rtol one ulp of the type (2^-7 bf16, 2^-10 fp16), with W X the
+    output's defining product in absolute values (P V, dS K, dS^T Q, P^T
+    dO) and E the bound of dP's fp32 summation order for dQ and dK, as
+    chip_smoke.check_case holds a kernel to its plain version. The two
+    sides round at the same points and differ only in fp32 summation
+    order, which can flip one rounding (one ulp) of an output element or
+    of a weight of P or dS. One ulp of each element alone does not hold: a
+    flipped weight moves an element that is small by cancellation by many
+    of its ulps, and in a row that sees one key dS is fp32 rounding noise
+    (dP - delta cancels), which E covers.
 
     That bound alone would pass a plain version that skips a rounding
     point (the error of one skipped rounding is within it), so each output
@@ -123,7 +137,8 @@ def test_flash_matches_jax_bf16(jx, d, causal):
     import jax.numpy as jnp
     from ray_tpu.ops.attention import flash_attention
 
-    q, k, v, w = (jnp.asarray(x, dtype=jnp.bfloat16)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    q, k, v, w = (jnp.asarray(x, dtype=jdt)
                   for x in _qkv(d + int(causal), 1, 2, 128, 128, d))
 
     def loss(q, k, v):
@@ -134,9 +149,9 @@ def test_flash_matches_jax_bf16(jx, d, causal):
     (_, j_out), j_grads = jax.value_and_grad(
         loss, argnums=(0, 1, 2), has_aux=True)(q, k, v)
 
-    def flat(x):   # bf16 through fp32 numpy arrays: exact
+    def flat(x):   # bf16 or fp16 through fp32 numpy arrays: exact
         t = torch.from_numpy(np.array(jnp.asarray(x, jnp.float32)))
-        return t.to(torch.bfloat16).reshape(2, 128, d)
+        return t.to(tdt).reshape(2, 128, d)
 
     tq, tk, tv, tw = (flat(x) for x in (q, k, v, w))
     leaves = [t.view(1, 2, 128, d).clone().requires_grad_(True)
@@ -144,7 +159,7 @@ def test_flash_matches_jax_bf16(jx, d, causal):
     t_out = tat.flash_attention(*leaves, causal=causal, block_q=64,
                                 block_k=64)
     (t_out.float() * tw.view(1, 2, 128, d).float()).sum().backward()
-    assert t_out.dtype == torch.bfloat16
+    assert t_out.dtype == tdt
 
     scale = 1.0 / np.sqrt(d)
     o, lse = tat.flash_fwd_plain(tq, tk, tv, causal=causal, sm_scale=scale,
@@ -152,7 +167,7 @@ def test_flash_matches_jax_bf16(jx, d, causal):
     delta = (tw.float() * o.float()).sum(-1)
     mag = chip_smoke._magnitudes(tq, tk, tv, tw, lse, delta, causal, scale,
                                  64, 64)
-    rtol = chip_smoke.RTOL[torch.bfloat16]
+    rtol = chip_smoke.RTOL[tdt]
     got = [t_out] + [t.grad for t in leaves]
     want = [j_out] + list(j_grads)
     for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):

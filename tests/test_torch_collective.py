@@ -4,7 +4,8 @@ allreduce of a pytree), on 2 and on 4 gloo ranks of
 tests/torch_dp_worker.py, checked against numpy. The reducescatter input
 has 3 rows on 2 ranks and 6 on 4, so that np.array_split's parts are
 uneven (2 + 1; 2 + 2 + 1 + 1), which reduce_scatter_tensor alone cannot
-split."""
+split. The point-to-point links each rank made are recorded before and
+after its sends (util/collective.py makes them at first use)."""
 
 import numpy as np
 import pytest
@@ -61,6 +62,20 @@ def test_symmetric_send_recv(ranks):
     world, outs = ranks
     for r, out in enumerate(outs):
         np.testing.assert_array_equal(out["sym"], np.array([float(r ^ 1)]))
+
+
+@pytest.mark.timeout(120)
+def test_pair_links_made_only_for_sends(ranks):
+    """A group that has only run collectives (allreduce, broadcast,
+    allgather, reducescatter, reduce, barrier) has made no point-to-point
+    link; after rank 0's send to rank 1 and the partners' exchange
+    (rank ^ 1), each rank has made exactly the links it used: both
+    directions with its partner."""
+    world, outs = ranks
+    for r, out in enumerate(outs):
+        assert out["links_before_p2p"].shape == (0, 2), r
+        pair = sorted([(r, r ^ 1), (r ^ 1, r)])
+        assert [tuple(x) for x in out["links"]] == pair, r
 
 
 @pytest.mark.timeout(120)

@@ -4,8 +4,8 @@ Marked ``cuda``: they skip where no card is present (they need nvcc and a
 GPU). On the card: ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 Tolerances are chip_smoke.py's (its ``check_case``): element by element,
 |kernel - plain| <= rtol (|plain| + |W||X|), with W X the product that
-defines the output, rtol 1e-5 in fp32 and 2^-7 (one bf16 ulp) in bf16;
-lse within 1e-4 absolute.
+defines the output, rtol 1e-5 in fp32, 2^-7 (one bf16 ulp) in bf16 and
+2^-10 (one fp16 ulp) in fp16; lse within 1e-4 absolute.
 """
 
 import dataclasses
@@ -39,10 +39,34 @@ def card():
     (96, 224, 128, torch.bfloat16, False, 32, 32),
     (96, 32, 64, torch.bfloat16, True, 32, 32),      # rows with no keys
     (1024, 1024, 128, torch.bfloat16, True, 128, 128),
+    # head dims padded on the card: 80 to 128 (bf16: the tensor cores),
+    # 256 (CUDA cores, 32-row tiles in K2 and K3), 77 (tensor cores,
+    # element-wise loads and stores); fp16 on the CUDA cores
+    (1024, 1024, 80, torch.bfloat16, True, 128, 128),
+    (160, 96, 80, torch.bfloat16, True, 32, 32),
+    (96, 224, 77, torch.bfloat16, False, 32, 32),
+    (160, 96, 256, torch.bfloat16, True, 32, 32),
+    (64, 32, 256, torch.float32, True, 64, 32),      # masked rows: mean V
+    (96, 224, 80, torch.float32, False, 32, 32),
+    (128, 128, 64, torch.float16, True, 64, 64),
+    (96, 32, 80, torch.float16, True, 32, 32),       # rows with no keys
 ])
 def test_kernels_match_plain(card, sq, sk, d, dtype, causal, bq, bk):
     res = chip_smoke.check_case(3, sq, sk, d, dtype, causal, bq, bk, card)
     assert all(ok for _, _, ok, _ in res.values()), res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(64, torch.bfloat16),
+                                     (32, torch.float32)])
+def test_kernels_at_bh_above_65535(card, d, dtype):
+    """B·H 70000, more than blockIdx.y could hold: each kernel launches
+    once and agrees with its plain version."""
+    before = {n: k.launches for n, k in A.KERNELS.items()}
+    res = chip_smoke.check_case(70000, 16, 16, d, dtype, True, 16, 16, card)
+    assert all(ok for _, _, ok, _ in res.values()), res
+    assert {n: k.launches - before[n] for n, k in A.KERNELS.items()} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
 
 
 @pytest.mark.cuda
@@ -55,10 +79,16 @@ def test_cuda_tensor_launches_kernel(card):
 
 @pytest.mark.cuda
 def test_unsupported_input_raises(card):
-    q = torch.randn((2, 64, 48), generator=card, device="cuda")
-    with pytest.raises(ValueError, match="head_dim"):
+    """Head dims above 256 raise (ROADMAP R-13); JAX's kernel takes them,
+    and so do the plain versions on the CPU."""
+    q = torch.randn((2, 64, 320), generator=card, device="cuda")
+    with pytest.raises(ValueError, match="limit of 256"):
         A.flash_fwd(q, q, q, causal=True, sm_scale=1.0, block_q=64,
                     block_k=64)
+    c = q.cpu()
+    o, _ = A.flash_fwd(c, c, c, causal=True, sm_scale=1.0, block_q=64,
+                       block_k=64)
+    assert o.shape == c.shape and torch.isfinite(o).all()
 
 
 def _one_card_run(cfg, weights, toks, steps):
@@ -143,7 +173,9 @@ def test_mp_check_gang_on_cards_matches_one_process(card, data, fsdp):
 def test_collective_across_cards(card, tmp_path):
     """ray_tpu_torch.util.collective on a NCCL group of four ranks, one per
     card: tests/test_torch_collective.py's three cases (6 reducescatter
-    rows: parts of 2, 2, 1, 1), checked against numpy. Needs four cards."""
+    rows: parts of 2, 2, 1, 1), checked against numpy, and the point-to-
+    point links each rank made: none before its sends, then exactly those
+    it used. Needs four cards."""
     if torch.cuda.device_count() < 4:
         pytest.skip("needs four cards")
     import test_torch_collective as C
@@ -152,6 +184,7 @@ def test_collective_across_cards(card, tmp_path):
     outs = launch(tmp_path, [run], {}, world=4, device="cuda", timeout=240)
     C.test_collective_ops((4, outs))
     C.test_symmetric_send_recv((4, outs))
+    C.test_pair_links_made_only_for_sends((4, outs))
     C.test_allreduce_pytree((4, outs))
 
 
@@ -684,6 +717,8 @@ def test_collective_groups_of_actors_across_cards(monkeypatch):
             return total - free
 
         def cases(self, rank, inp, half_rank):
+            import time
+
             import torch
 
             from ray_tpu_torch.util import collective as col
@@ -706,6 +741,13 @@ def test_collective_groups_of_actors_across_cards(monkeypatch):
                 out["half"] = col.allreduce(card(inp["half"][rank]),
                                             group_name="half")
             col.barrier(**g)
+            # Point to point makes its links at first use: the wall time
+            # and card bytes of each group's first exchanges, and the
+            # links each rank made (none before).
+            p2p = {"links_before": {k: col.pair_links(k) for k in (
+                ["all", "half"] if rank in half_rank else ["all"])}}
+            torch.cuda.synchronize(self.dev)
+            p2p["used"], t0 = [self.card_used()], time.perf_counter()
             if rank == 0:
                 col.send(card(inp["msg"]), dst_rank=1, **g)
             elif rank == 1:
@@ -714,11 +756,20 @@ def test_collective_groups_of_actors_across_cards(monkeypatch):
             out["sym"] = col.recv(src_rank=rank ^ 1, **g)
             col.send(card(inp["sym"][rank]), dst_rank=(rank + 1) % n, **g)
             out["ring"] = col.recv(src_rank=(rank - 1) % n, **g)
+            p2p["links"] = {"all": col.pair_links("all")}
+            torch.cuda.synchronize(self.dev)
+            p2p["ms"] = {"all": 1e3 * (time.perf_counter() - t0)}
+            p2p["used"].append(self.card_used())
             if rank in half_rank:
                 peer = 1 - half_rank[rank]
+                t0 = time.perf_counter()
                 col.send(card(inp["half"][rank]), dst_rank=peer,
                          group_name="half")
                 out["half_recv"] = col.recv(src_rank=peer, group_name="half")
+                p2p["links"]["half"] = col.pair_links("half")
+                torch.cuda.synchronize(self.dev)
+                p2p["ms"]["half"] = 1e3 * (time.perf_counter() - t0)
+                p2p["used"].append(self.card_used())
             out["tree"] = col.allreduce({"w": card(inp["tw"][rank]),
                                          "b": card(inp["tb"][rank])}, **g)
             leaves = [v for v in out.values() for v in (
@@ -733,7 +784,7 @@ def test_collective_groups_of_actors_across_cards(monkeypatch):
                 if isinstance(v, list):
                     return [host(w) for w in v]
                 return v.cpu().numpy()
-            return {k: host(v) for k, v in out.items()}, on_card
+            return {k: host(v) for k, v in out.items()}, on_card, p2p
 
         def tree_broadcast(self, rank, group, reps):
             import time
@@ -821,6 +872,15 @@ def test_collective_groups_of_actors_across_cards(monkeypatch):
           f"group {[b - a for a, b in zip(card[1], card[2])]}; allocator "
           f"peak of one NCCL broadcast per rank (result included) "
           f"{[r['peak'] for r in nccl]}")
+    p2p = [extra for _, _, extra in cases]
+    print(f"[collective] first point-to-point exchanges, links made at first "
+          f"use: wall ms per rank, group 'all' (0->1, partners, ring) "
+          f"{[round(x['ms']['all'], 1) for x in p2p]}, group 'half' "
+          f"{[round(x['ms'].get('half', 0.0), 1) for x in p2p]}; card bytes "
+          f"they added per rank, 'all' "
+          f"{[x['used'][1] - x['used'][0] for x in p2p]}, 'half' "
+          f"{[x['used'][-1] - x['used'][1] for x in p2p]}; links made "
+          f"{[x['links'] for x in p2p]}")
     print(f"[collective] GPT-2 small's parameter tree ({tree['leaves']} "
           f"leaves, {tree['params']} parameters, {tree['bytes']} bytes bf16)"
           f" broadcast from rank 0 to 3 ranks ({3 * tree['bytes']} bytes "
@@ -831,8 +891,18 @@ def test_collective_groups_of_actors_across_cards(monkeypatch):
     assert len({w["pid"] for w in where} | {os.getpid()}) == n + 1
     assert len({w["uuid"] for w in where}) == n
     assert [w["device"] for w in where] == [f"cuda:{i}" for i in range(n)]
-    assert all(on_card for _, on_card in cases)
-    outs = [out for out, _ in cases]
+    assert all(on_card for _, on_card, _ in cases)
+    outs = [out for out, _, _ in cases]
+    # Links only where a rank sent or received: none before; after, both
+    # directions with its partner (rank ^ 1) and, from the ring, the link
+    # from its predecessor and to its successor.
+    for r, x in enumerate(p2p):
+        assert all(v == [] for v in x["links_before"].values()), x
+        want = sorted({(r, r ^ 1), (r ^ 1, r), ((r - 1) % n, r),
+                       (r, (r + 1) % n)})
+        assert [tuple(k) for k in x["links"]["all"]] == want, (r, x)
+        if r in half_rank:
+            assert [tuple(k) for k in x["links"]["half"]] == [(0, 1), (1, 0)]
     total = sum(inp["x"])
     for r, out in enumerate(outs):
         np.testing.assert_allclose(out["allreduce"], total, rtol=1e-12)

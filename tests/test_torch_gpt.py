@@ -88,11 +88,16 @@ def test_logits_match_jax(tiny):
         < LOGITS_TOL
 
 
-@pytest.mark.parametrize("attention", ["flash", "reference"])
-def test_loss_and_grads_match_jax(jx, attention):
+# The tiny config (head dim 32) with each attention, and flash at head dim
+# 48 (d_model 96 over 2 heads), a width the card's kernels pad to 64.
+@pytest.mark.parametrize("attention,widths", [
+    ("flash", {}), ("reference", {}),
+    ("flash", {"d_model": 96, "n_heads": 2})],
+    ids=["flash", "reference", "flash-head_dim48"])
+def test_loss_and_grads_match_jax(jx, attention, widths):
     import jax
     from ray_tpu.models.gpt import gpt_loss
-    jcfg, tcfg = _cfgs(attention=attention)
+    jcfg, tcfg = _cfgs(attention=attention, **widths)
     tree = _jax_params(jcfg)
     toks = _tokens()
     j_loss, j_grads = jax.value_and_grad(

@@ -112,8 +112,9 @@ def test_stage_pipeline_survives_stage_death(rt):
 def test_oversize_outputs_arrive_intact(rt):
     """Outputs above a channel slot (8 MB against 1 MiB) reach the caller
     as views of object-store memory that the store reuses once the stage
-    lets them go (ROADMAP R-11); run() copies each as it arrives, so all
-    eight are intact at the end."""
+    lets them go (ROADMAP R-11); run() copies each as it arrives, holding
+    its object until the copy is done, so all eight are intact at the
+    end."""
     class Big:
         def apply(self, i):
             import numpy
@@ -125,6 +126,36 @@ def test_oversize_outputs_arrive_intact(rt):
         outs = pipe.run(list(range(8)), timeout=60)
     assert [int(o.min()) for o in outs] == list(range(8))
     assert [int(o.max()) for o in outs] == list(range(8))
+    rt.kill(s)
+
+
+@pytest.mark.timeout(60)
+def test_oversize_output_is_copied_while_its_ref_is_held(rt):
+    """held_result (util/held.py), as run() uses it: the ObjectRef that a
+    DAG read deserializes for an oversize output is still held while the
+    output is copied, so the store cannot reuse the object's memory under
+    the copy (R-11); the copy is the caller's own (writeable)."""
+    from ray_tpu_torch.util import held
+
+    class Big:
+        def apply(self, i):
+            import numpy
+            return numpy.full(4 << 20, i, dtype=numpy.int16)
+
+    s = rt.remote(num_cpus=1)(Big).remote()
+    seen = []
+    with P.StagePipeline([s], method="apply", runtime=rt) as pipe:
+        ref = pipe.submit(3)
+
+        def resolve():
+            value = ref.result(60)
+            seen.append(list(held._keeper(rt).local.kept))
+            return value
+
+        out = held.held_result(rt, resolve)
+    assert [type(r).__name__ for r in seen[0]] == ["ObjectRef"]
+    assert int(out.min()) == int(out.max()) == 3 and out.flags.writeable
+    assert held._keeper(rt).local.kept is None
     rt.kill(s)
 
 

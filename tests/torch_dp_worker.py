@@ -203,6 +203,10 @@ def _collective(run, data, devices, result):
     say("collectives done")
     col.barrier(group_name=name)
     say("barrier")
+
+    def links():   # the point-to-point links made so far, [n, 2]
+        return np.array(col.pair_links(name), dtype=np.int64).reshape(-1, 2)
+    result[f"{tag}links_before_p2p"] = links()
     if rank == 0:
         col.send(np.array([42.0]), dst_rank=1, group_name=name)
     elif rank == 1:
@@ -213,6 +217,7 @@ def _collective(run, data, devices, result):
     col.send(np.array([float(rank)]), dst_rank=peer, group_name=name)
     result[f"{tag}sym"] = col.recv(src_rank=peer, group_name=name)
     say("symmetric send/recv")
+    result[f"{tag}links"] = links()
     tree = {"w": np.ones((2, 2)) * (rank + 1), "b": [np.ones(2) * (rank + 1),
                                                      torch.ones(3) * rank]}
     out = col.allreduce(tree, group_name=name)

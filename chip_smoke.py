@@ -4,15 +4,18 @@
 
 Phases, each of which raises on failure:
   (a) the device, and nvidia-smi's name and power limit for it;
-  (b) build the CUDA kernels from ray_tpu_torch/csrc with nvcc;
+  (b) build the CUDA kernels from ray_tpu_torch/csrc with nvcc, one
+      process per source, all at once; each kernel instance's registers,
+      stack frame and spill bytes from ptxas;
   (c) hold each kernel against its plain PyTorch version on the card, at
       the main-path shape (B·H 96, also the MoE phase's), the GPT-2-medium
-      shape (B·H 128), phase (s)'s shape (B·H 128, head dim 80) and at
-      small shapes (head dims 16-256, the compiled widths and widths
-      padded to them, 77 among them; causal on and off, seq_q < seq_k and
-      seq_q > seq_k, ragged tiles, rows with no key or only masked keys;
-      fp32, bf16 and fp16; B·H 70000), each with the design and padded
-      width that ran it;
+      shape (B·H 128), phase (s)'s shape (B·H 128, head dim 80), phase
+      (t)'s (B·H 32, head dim 256) and at small shapes (head dims 16-576:
+      the compiled widths 64-256 and widths padded to them, 77 and 129
+      among them, and heads above 256 cut into chunks; causal on and off,
+      seq_q < seq_k and seq_q > seq_k, ragged tiles, rows with no key or
+      only masked keys; fp32, bf16 and fp16; B·H 70000 at head dims 64 and
+      256), each with the design, padded width and chunks that ran it;
   (d) GPT-2-small gpt_forward at 8x1024: flash attention against the
       reference attention on the same weights;
   (e) the main path: AdamW(3e-4) steps of GPT-2 small (full remat) at
@@ -26,8 +29,11 @@ Phases, each of which raises on failure:
   (f) each kernel timed with CUDA events beside its plain version and
       PyTorch's scaled_dot_product_attention (forward for K1, backward
       alone for K2 and K3, forward+backward printed beside; timed only
-      here, the port never calls it), at the main shape and at phase (s)'s
-      (B·H 128, S 1024, head dim 80, bf16, causal);
+      here, the port never calls it), at the main shape, at phase (s)'s
+      (B·H 128, S 1024, head dim 80) and (t)'s (B·H 32, head dim 256)
+      shapes in bf16, in fp16 at the main shape and (t)'s, in fp32 at the
+      main shape (the CUDA cores), and at head dim 512 (B·H 32, two chunks
+      of 256), all causal;
   (i) GPT-2 small with MoE (4 experts, top-2, full remat) through the same
       entry points: launches, losses, the aux loss, the routing flips
       between flash and reference attention, and the step-0 gate against
@@ -137,6 +143,11 @@ Phases, each of which raises on failure:
       attention under (e)'s gate with its controls, five steps with
       64/32/32 launches each, finite falling losses, step ms, peak memory
       and K1-K3's share of a profiled step;
+  (t) the same at Gemma-2B's published widths (d_model 2048, 8 heads of
+      256, 18 layers, d_ff 16384, vocab 256000, tied embeddings, RMSNorm
+      eps 1e-6: 2,638,292,992 parameters, checked), batch [4, 1024] at full
+      depth: K1-K3 on the tensor cores at 256, 36/18/18 launches a step;
+      the peak beside 42.2 GB of fp32 state and the loss chunk's 8.4 GB;
   (g) one line {"kernels": [...]} (launches from the main path, e);
   (h) last line {"ok": true, "device": {...}}.
 
@@ -165,7 +176,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound_ms roofline.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+              torch.float32: 67e12}
 
 MAIN = dict(batch=8, heads=12, seq=1024, head_dim=64, dtype=torch.bfloat16)
 STEPS = 5          # flash-attention AdamW steps on the main path
@@ -192,8 +204,12 @@ SEED = 0
 # key, p = 1 and O = V, so dP - delta cancels and dS is that rounding noise
 # itself. The term p |dO| |V|^T 2 D 2^-23, carried through |K| and |Q| as
 # dS is, bounds the two sides' difference there. In fp32 the CUDA-core
-# kernels hold to the relative term alone, which stays their bound
-# (PERF.md).
+# kernels hold to the relative term alone at head dims up to 256, which
+# stays their bound there (PERF.md). Above 256 they sum each product over
+# d chunk by chunk, the block's own chunk last: in a row that sees one key
+# the plain version's dS then can cancel to exactly 0 (a bound of 0) where
+# the kernel's is fp32 rounding noise (2.1e-6 and 4.3e-6 in dQ at d 320
+# and 512, PERF.md), so there fp32 takes the dP term too.
 # fp16 keeps 3 more bits than bf16: its ulp is 2^-10 relative, and the
 # same analysis holds with that unit, the dP term included.
 RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7,
@@ -258,17 +274,58 @@ def phase_device() -> dict:
 # (b) build
 # ---------------------------------------------------------------------------
 
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+_MANGLED_ARG = re.compile(r"Li(\d+)E|13__nv_bfloat16|6__half|f")
+
+
+def kernel_instance(mangled: str) -> str:
+    """A readable name for one of the flash kernels' mangled symbols:
+    ``flash_fwd_tc_kernel<bf16, 64, 0>`` (the type, the compiled width, and
+    the mode or row tile)."""
+    m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_(?:tc2?_)?kernel)I(.*?)EEv",
+                  mangled)
+    if not m:
+        return mangled
+    args = [{"13__nv_bfloat16": "bf16", "6__half": "fp16", "f": "fp32"}.get(
+        a.group(0), a.group(1)) for a in _MANGLED_ARG.finditer(m.group(2))]
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
+def ptxas_summary(text: str) -> list:
+    """[(instance, registers, stack frame bytes, spill store bytes, spill
+    load bytes)] from ``nvcc -Xptxas -v`` output."""
+    out, name, spill = [], None, (0, 0, 0)
+    for line in text.splitlines():
+        if (m := _PTXAS_ENTRY.search(line)):
+            name = kernel_instance(m.group(1))
+        elif (m := _PTXAS_SPILL.search(line)) and name:
+            spill = tuple(int(x) for x in m.groups())
+        elif (m := _PTXAS_REGS.search(line)) and name:
+            out.append((name, int(m.group(1)), *spill))
+            name, spill = None, (0, 0, 0)
+    return out
+
+
 def phase_build() -> None:
     from ray_tpu_torch.ops import _build
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"[b] nvcc {_build.find_nvcc()}: built {sorted(built) or 'nothing'} "
-        f"in {time.perf_counter() - t0:.1f} s "
+        f"in {time.perf_counter() - t0:.1f} s, one nvcc per source "
         f"(flags {' '.join(_build.NVCC_FLAGS)})")
     for name in built:
         text = _build.library_path(name).with_suffix(".log").read_text()
+        rows = ptxas_summary(text)
+        log(f"[b]   {name}: {len(rows)} kernel instances (registers, stack "
+            f"frame, spill stores, spill loads in bytes):")
+        for inst, regs, stack, st, ld in sorted(rows):
+            log(f"[b]     {inst}: {regs} registers, stack {stack}, spills "
+                f"{st}/{ld}")
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
+            if "warning" in line.lower():
                 log(f"[b]   {line.strip()}")
     _build.load_library("flash_attention")
 
@@ -343,8 +400,10 @@ def check_case(bh, sq, sk, d, dtype, causal, bq, bk, gen) -> dict:
     mag = _magnitudes(q, k, v, do, lse_ref, delta, causal, scale, bq, bk)
     rtol = RTOL[dtype]
     lse_err = _max_err(lse, lse_ref)
-    low = dtype != torch.float32   # bf16 and fp16: the dP term (see RTOL)
-    dq_sum, dk_sum = (mag["dq_sum"], mag["dk_sum"]) if low else (0.0, 0.0)
+    # bf16, fp16 and chunked fp32: the dP term (see RTOL).
+    dp_term = dtype != torch.float32 or d > 256
+    dq_sum, dk_sum = (mag["dq_sum"], mag["dk_sum"]) if dp_term else (0.0,
+                                                                      0.0)
     pairs = {"flash_fwd": [(o, o_ref, mag["o"], 0.0)],
              "flash_bwd_dq": [(dq, dq_ref, mag["dq"], dq_sum)],
              "flash_bwd_dkv": [(dk, dk_ref, mag["dk"], dk_sum),
@@ -402,7 +461,43 @@ SMALL_CASES = [
     (2, 64, 32, 80, torch.float16, True, 64, 32),       # masked rows: mean V
     # B·H above the 65535 that blockIdx.y could hold
     (70000, 16, 16, 64, torch.bfloat16, True, 16, 16),
+    # bf16 and fp16 at 129-256 on the tensor cores (192 and 256; K3 over
+    # two warpgroups), fp16 at 33-128 on them too
+    (2, 160, 96, 129, torch.bfloat16, True, 32, 32),    # ragged 64-tiles
+    (2, 96, 224, 160, torch.bfloat16, False, 32, 32),
+    (2, 64, 32, 192, torch.bfloat16, True, 64, 32),     # masked rows: mean V
+    (2, 128, 384, 200, torch.bfloat16, True, 128, 128),  # seq_q < seq_k
+    (2, 96, 32, 256, torch.bfloat16, True, 32, 32),     # rows with no keys
+    (2, 96, 32, 129, torch.float16, True, 32, 32),      # rows with no keys
+    (2, 160, 96, 160, torch.float16, True, 32, 32),
+    (2, 96, 224, 192, torch.float16, False, 32, 32),
+    (2, 64, 32, 200, torch.float16, True, 64, 32),      # masked rows: mean V
+    (2, 160, 96, 256, torch.float16, True, 32, 32),
+    (4, 128, 128, 48, torch.float16, True, 64, 64),
+    (2, 384, 128, 64, torch.float16, True, 128, 128),   # seq_q > seq_k
+    (2, 96, 224, 128, torch.float16, False, 32, 32),
+    # above 256: chunks of at most 256 columns (257: 136 + 121, element
+    # loads; 320: 2 x 160; 512: 2 x 256; 576: 3 x 192), every dtype
+    *[case for dt in (torch.bfloat16, torch.float16, torch.float32)
+      for case in ((2, 64, 32, 257, dt, True, 64, 32),
+                   (2, 160, 96, 320, dt, True, 32, 32),
+                   (2, 96, 32, 512, dt, True, 32, 32),
+                   (2, 96, 224, 576, dt, False, 32, 32))],
+    (70000, 16, 16, 256, torch.bfloat16, True, 16, 16),
+    # fp16 at 16 and 32, on the tensor cores padded to 64 as bf16
+    (4, 128, 128, 16, torch.float16, True, 64, 64),
+    (2, 96, 224, 32, torch.float16, False, 32, 32),
 ]
+
+
+def route_text(dtype, d) -> str:
+    """How the kernels take (dtype, d): "tensor cores, d padded to 128" or
+    "tensor cores, d 512 in 2 chunks padded to 256"."""
+    from ray_tpu_torch.ops import attention as A
+    name, dp, nc = A.kernel_route(dtype, d)
+    if nc > 1:
+        return f"{name}, d {d} in {nc} chunks padded to {dp}"
+    return f"{name}, d padded to {dp}"
 
 
 def phase_kernels() -> dict:
@@ -425,10 +520,9 @@ def phase_kernels() -> dict:
 
     for case in SMALL_CASES:
         bh, sq, sk, d, dt, causal, bq, bk = case
-        design, dp = A.kernel_route(dt, d)
         run(case, f"bh={bh} sq={sq} sk={sk} d={d} {str(dt)[6:]} "
-                  f"causal={causal} blocks=({bq},{bk}) [{design}, d "
-                  f"padded to {dp}]")
+                  f"causal={causal} blocks=({bq},{bk}) "
+                  f"[{route_text(dt, d)}]")
     m = MAIN
     bh = m["batch"] * m["heads"]
     res = run((bh, m["seq"], m["seq"], m["head_dim"], m["dtype"], True,
@@ -450,9 +544,18 @@ def phase_kernels() -> dict:
          torch.bfloat16, True, 128, 128),
         f"stablelm-3b shape bh={bh} s={s['max_seq']} "
         f"d={s['d_model'] // s['n_heads']} bf16 causal")
+    # Phase (t): Gemma-2B's widths, head dim 256, batch 4.
+    t = GEMMA
+    bh = T_BATCH * t["n_heads"]
+    run((bh, t["max_seq"], t["max_seq"], t["d_model"] // t["n_heads"],
+         torch.bfloat16, True, 128, 128),
+        f"gemma-2b shape bh={bh} s={t['max_seq']} "
+        f"d={t['d_model'] // t['n_heads']} bf16 causal "
+        f"[{route_text(torch.bfloat16, t['d_model'] // t['n_heads'])}]")
     log(f"[c] tolerance: |kernel - plain| <= rtol (|plain| + |W||X|), rtol "
         f"fp32 {RTOL[torch.float32]:.0e} bf16 2^-7 fp16 2^-10, plus for "
-        f"bf16 and fp16 dQ and dK p |dO||V|^T D 2^-22 through |K| and |Q|; "
+        f"bf16, fp16 and fp32 above d 256 dQ and dK p |dO||V|^T D 2^-22 "
+        f"through |K| and |Q|; "
         f"|lse - plain| <= {LSE_ATOL:.0e}; ratio = max |kernel - plain| / "
         f"tolerance")
     if failed:
@@ -3178,42 +3281,60 @@ STABLELM = dict(d_model=2560, n_heads=32, n_layers=32, d_ff=6912,
 S_BATCH = 4
 
 
-def phase_stablelm() -> None:
-    """(s) The port's GPT at StableLM-3B's widths (about 2.80 B parameters,
-    head dim 80: K1-K3 padded to 128 on the tensor cores) trained on one
-    card through (e)'s entry points (build_mesh -> init_train_state ->
-    make_train_step, "dp"), bf16 activations over fp32 masters, remat
-    full, batch [4, 1024], AdamW(3e-4): step 0 against the same step with
-    reference attention under (e)'s gate, which the two controls must
-    fail; five steps with 2L/L/L launches each (64/32/32), finite and
-    falling losses; step ms, peak memory beside its reckoning, and one
-    profiled step's device time and K1-K3's share. Weights drawn afresh
-    from SEED for each run (no second copy held)."""
-    from ray_tpu_torch.models import GPTConfig, count_params
-    from ray_tpu_torch.ops.attention import KERNELS, kernel_route
+# google/gemma-2b config.json: hidden_size 2048, num_attention_heads 8,
+# head_dim 256, num_hidden_layers 18, intermediate_size 16384, vocab_size
+# 256000, tie_word_embeddings, rms_norm_eps 1e-6, rope_theta 10000; in this
+# repo's GPT family, not Gemma's own layer details: full multi-head
+# attention (Gemma-2B has one KV head), SwiGLU (Gemma: GeGLU), no
+# sqrt(d_model) scale on the embeddings, RMSNorm scales w (Gemma's: 1 + w).
+GEMMA = dict(d_model=2048, n_heads=8, n_layers=18, d_ff=16384,
+             vocab_size=256000, max_seq=1024, tie_embeddings=True,
+             rmsnorm_eps=1e-6)
+GEMMA_PARAMS = 2_638_292_992
+T_BATCH = 4
+
+
+def train_widths(tag, name, cfg, batch_size, params=None,
+                 xent_gb=0.0) -> None:
+    """The port's GPT at ``cfg``'s widths trained on one card through (e)'s
+    entry points (build_mesh -> init_train_state -> make_train_step, "dp"),
+    bf16 activations over fp32 masters, remat full, batch [``batch_size``,
+    seq], AdamW(3e-4): step 0 against the same step with reference attention
+    under (e)'s gate, which the two controls must fail; STEPS steps with
+    2L/L/L launches each, finite and falling losses; step ms, peak memory
+    beside its reckoning (``xent_gb``: the loss chunk's fp32 logits and
+    their gradient), and one profiled step's device time and K1-K3's share.
+    ``params``: the parameter count the widths must give. Weights drawn
+    afresh from SEED for each run (no second copy held)."""
+    from ray_tpu_torch.models import count_params
+    from ray_tpu_torch.ops.attention import KERNELS
     t0 = time.perf_counter()
-    cfg = GPTConfig(**STABLELM)
     seq = cfg.max_seq
-    batch = {"tokens": _tokens(cfg, S_BATCH, seq + 1)}
-    design, dp = kernel_route(cfg.dtype, cfg.head_dim)
+    batch = {"tokens": _tokens(cfg, batch_size, seq + 1)}
     ref = _step0(dataclasses.replace(cfg, attention="reference"), None, batch)
     torch.cuda.empty_cache()
     controls = {}
-    for name, fn in CONTROLS:
-        controls[name] = _step0(cfg, None, batch, fn)
+    for label, fn in CONTROLS:
+        controls[label] = _step0(cfg, None, batch, fn)
         torch.cuda.empty_cache()
     model = _seeded(cfg)
     n = count_params(model)
+    if params is not None and n != params:
+        raise AssertionError(f"{name} widths: {n:,} parameters, expected "
+                             f"{params:,}")
     # fp32 weights, gradients and AdamW's two moments: 16 bytes a
     # parameter; with full remat the activations kept are one bf16 [B, S,
     # d] per layer, plus one layer's recompute and the loss's chunks.
     state_gb = 16 * n / 1e9
-    log(f"[s] stablelm-3b widths: {n:,} params, d_model {cfg.d_model}, "
-        f"{cfg.n_heads} heads of {cfg.head_dim} (K1-K3 on the {design}, "
-        f"padded to {dp}), {cfg.n_layers} layers, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab_size}; batch {S_BATCH}x{seq}, remat full, AdamW(3e-4); "
-        f"reckoned peak: {state_gb:.1f} GB of weights, gradients and "
-        f"moments plus a few GB of activations")
+    log(f"[{tag}] {name} widths: {n:,} params, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.head_dim} (K1-K3 on the "
+        f"{route_text(cfg.dtype, cfg.head_dim)}), {cfg.n_layers} layers, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied embeddings "
+        f"{cfg.tie_embeddings}, rmsnorm eps {cfg.rmsnorm_eps:g}; batch "
+        f"{batch_size}x{seq}, remat full, AdamW(3e-4); reckoned peak: "
+        f"{state_gb:.1f} GB of weights, gradients and moments"
+        + (f" + {xent_gb:.1f} GB of the loss chunk's fp32 logits and their "
+           f"gradient" if xent_gb else "") + " plus a few GB of activations")
     for kern in KERNELS.values():
         kern.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -3221,33 +3342,58 @@ def phase_stablelm() -> None:
     launches = {k: kern.launches for k, kern in KERNELS.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for i in range(STEPS):
-        log(f"[s] flash step {i}: loss {losses[i]:.5f} grad_norm "
+        log(f"[{tag}] flash step {i}: loss {losses[i]:.5f} grad_norm "
             f"{norms[i]:.5f} {1e3 * times[i]:.1f} ms launches {counts[i]}")
     step_ms = 1e3 * statistics.median(times[1:])
-    log(f"[s] flash: step {step_ms:.1f} ms (median of steps 1-{STEPS - 1}, "
-        f"host clock), {S_BATCH * seq / step_ms * 1e3:,.0f} tok/s, peak "
-        f"memory {peak_gb:.1f} GB (reckoned {state_gb:.1f} GB + "
-        f"activations); launches over {STEPS} steps: {launches}")
+    log(f"[{tag}] flash: step {step_ms:.1f} ms (median of steps 1-"
+        f"{STEPS - 1}, host clock), {batch_size * seq / step_ms * 1e3:,.0f} "
+        f"tok/s, peak memory {peak_gb:.1f} GB (reckoned {state_gb:.1f} GB"
+        + (f" + {xent_gb:.1f} GB" if xent_gb else "")
+        + f" + activations); launches over {STEPS} steps: {launches}")
     expected = _expected_launches(cfg)
     bad = [i for i, c in enumerate(counts) if c != expected]
     if bad:
-        raise AssertionError(f"stablelm-3b launches {counts} != {expected}")
+        raise AssertionError(f"{name} launches {counts} != {expected}")
     if not all(math.isfinite(x) for x in losses + norms):
-        raise AssertionError(f"stablelm-3b: non-finite loss: {losses}")
+        raise AssertionError(f"{name}: non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"stablelm-3b: loss did not fall: {losses}")
-    if not _gate("s", losses[0], norms[0], ref, "flash vs reference"):
-        raise AssertionError("stablelm-3b: step 0 differs from the "
-                             "reference step")
-    passed = [name for name, res in controls.items()
-              if _gate("s", *res, ref, f"control ({name}) vs reference")]
+        raise AssertionError(f"{name}: loss did not fall: {losses}")
+    if not _gate(tag, losses[0], norms[0], ref, "flash vs reference"):
+        raise AssertionError(f"{name}: step 0 differs from the reference "
+                             "step")
+    passed = [label for label, res in controls.items()
+              if _gate(tag, *res, ref, f"control ({label}) vs reference")]
     if passed:
-        raise AssertionError(f"stablelm-3b: the step-0 gate passes wrong "
+        raise AssertionError(f"{name}: the step-0 gate passes wrong "
                              f"attention: {passed}")
-    _profile_step(model, batch, "s", "stablelm-3b step", top=5)
+    _profile_step(model, batch, tag, f"{name} step", top=5)
     del model
     torch.cuda.empty_cache()
-    log(f"[s] phase (s) took {time.perf_counter() - t0:.1f} s")
+    log(f"[{tag}] phase ({tag}) took {time.perf_counter() - t0:.1f} s")
+
+
+def phase_stablelm() -> None:
+    """(s) The port's GPT at StableLM-3B's widths (about 2.80 B parameters,
+    head dim 80: K1-K3 padded to 128 on the tensor cores), batch [4, 1024],
+    through ``train_widths``: the gate and controls, 64/32/32 launches a
+    step."""
+    from ray_tpu_torch.models import GPTConfig
+    train_widths("s", "stablelm-3b", GPTConfig(**STABLELM), S_BATCH)
+
+
+def phase_gemma() -> None:
+    """(t) The port's GPT at Gemma-2B's widths (2,638,292,992 parameters,
+    head dim 256: K1-K3 on the tensor cores at 256, K3 over two
+    warpgroups; tied embeddings, RMSNorm eps 1e-6), batch [4, 1024], at
+    full depth through ``train_widths``: the gate and controls, 36/18/18
+    launches a step. How it differs from Gemma: see GEMMA. The one
+    chunked_xent chunk, [4096, 256000], holds its fp32 logits and their
+    gradient (8.4 GB) beside the 42.2 GB of fp32 state."""
+    from ray_tpu_torch.models import GPTConfig
+    cfg = GPTConfig(**GEMMA)
+    rows = T_BATCH * cfg.max_seq
+    train_widths("t", "gemma-2b", cfg, T_BATCH, params=GEMMA_PARAMS,
+                 xent_gb=2 * rows * cfg.vocab_size * 4 / 1e9)
 
 
 # ---------------------------------------------------------------------------
@@ -3294,9 +3440,8 @@ def phase_timing(m=MAIN, label="main shape") -> dict:
     from ray_tpu_torch.ops import attention as A
     b, h, s, d, dt = m["batch"], m["heads"], m["seq"], m["head_dim"], m["dtype"]
     bh = b * h
-    design, dp = A.kernel_route(dt, d)
     log(f"[f] {label}: B·H {bh}, S {s}, D {d}, {str(dt)[6:]}, causal; "
-        f"K1-K3 on the {design}, D padded to {dp}")
+        f"K1-K3 on the {route_text(dt, d)}")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 2)
     q, k, v, do = _inputs(bh, s, s, d, dt, gen)
@@ -3361,6 +3506,29 @@ def phase_timing(m=MAIN, label="main shape") -> dict:
     return out
 
 
+def _shape(batch, heads, seq, head_dim, dtype=torch.bfloat16) -> dict:
+    return dict(batch=batch, heads=heads, seq=seq, head_dim=head_dim,
+                dtype=dtype)
+
+
+def phase_timing_shapes() -> None:
+    """Phase (f) beyond the main shape: (s)'s and (t)'s shapes in bf16, fp16
+    at the main shape and at (t)'s, fp32 at the main shape (the CUDA
+    cores), and a head above 256 (B·H 32, S 1024, D 512, bf16: two chunks
+    of 256)."""
+    s, t = STABLELM, GEMMA
+    s_d, t_d = s["d_model"] // s["n_heads"], t["d_model"] // t["n_heads"]
+    phase_timing(_shape(S_BATCH, s["n_heads"], s["max_seq"], s_d),
+                 "stablelm-3b shape")
+    gemma = _shape(T_BATCH, t["n_heads"], t["max_seq"], t_d)
+    phase_timing(gemma, "gemma-2b shape")
+    phase_timing(dict(MAIN, dtype=torch.float16), "main shape fp16")
+    phase_timing(dict(gemma, dtype=torch.float16), "gemma-2b shape fp16")
+    phase_timing(dict(MAIN, dtype=torch.float32), "main shape fp32")
+    phase_timing(_shape(T_BATCH, t["n_heads"], t["max_seq"], 512),
+                 "head dim 512")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3379,10 +3547,7 @@ def main() -> int:
     phase_forward()
     launches, e_step0, e_step_ms = phase_train()
     timing = phase_timing()
-    phase_timing(dict(batch=S_BATCH, heads=STABLELM["n_heads"],
-                      seq=STABLELM["max_seq"],
-                      head_dim=STABLELM["d_model"] // STABLELM["n_heads"],
-                      dtype=torch.bfloat16), "stablelm-3b shape")
+    phase_timing_shapes()
     phase_moe()
     phase_medium()
     phase_strategies(e_step0)
@@ -3394,14 +3559,15 @@ def main() -> int:
     phase_entry_points(algo_ms["PPO"])
     phase_collectives()
     phase_stablelm()
+    phase_gemma()
     kernels = [dict(name=n, route="cuda", source=SOURCES[n],
                     replaces=REPLACES[n],
                     launches=launches[n], max_abs_err=errs[n],
                     library=LIBRARY_CALLS[n], **timing[n])
                for n in REPLACES]
     log(f"[g] total {time.perf_counter() - t_start:.1f} s on {dev['smi']} "
-        f"(the script before phase (s): 382.6 s on an NVIDIA H100 80GB "
-        f"HBM3 at 700.00 W, PERF.md run R8)")
+        f"(the script before phase (t): 410.1-499.7 s on an NVIDIA H100 "
+        f"80GB HBM3 at 700.00 W, PERF.md runs S3 and S8)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}),

@@ -1,11 +1,13 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
-Every ``ray_tpu_torch/csrc/*.cu`` file becomes its own shared library with
-a plain C interface (no PyTorch headers, so a build takes seconds rather
-than minutes). The libraries go to ``build/ray_tpu_torch/`` at the root of
-the checkout, named by a hash of the sources and flags, so an edit to any
-source rebuilds on the next first use. All sources compile in parallel,
-one ``nvcc`` each.
+Every ``ray_tpu_torch/csrc/<name>.cu`` file becomes a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds rather than
+minutes), linked with its parts, the files ``csrc/<name>.<part>.cu``. Each
+source compiles to an object of its own, all ``nvcc`` processes at once,
+and each library is linked from its objects. The libraries go to
+``build/ray_tpu_torch/`` at the root of the checkout, named by a hash of
+the sources and flags, so an edit to any source rebuilds on the next first
+use.
 
 Nothing here runs at import time: the CPU tests import every module of
 the port on a machine without ``nvcc``. A missing ``nvcc`` or a failed
@@ -22,14 +24,14 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ray_tpu_torch"
 
 NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
 def find_nvcc() -> str:
@@ -48,8 +50,13 @@ def find_nvcc() -> str:
                        "nvcc on PATH); the CUDA kernels cannot be built")
 
 
-def _sources() -> Dict[str, Path]:
-    return {p.stem: p for p in sorted(CSRC_DIR.glob("*.cu"))}
+def _sources() -> Dict[str, List[Path]]:
+    """{library: its sources}, the library's own ``<name>.cu`` first."""
+    libs: Dict[str, List[Path]] = {}
+    for p in sorted(CSRC_DIR.glob("*.cu"), key=lambda p: (p.name.count("."),
+                                                          p.name)):
+        libs.setdefault(p.name.split(".")[0], []).append(p)
+    return libs
 
 
 def _digest() -> str:
@@ -67,32 +74,51 @@ def library_path(name: str) -> Path:
 
 
 def build_all() -> Dict[str, float]:
-    """Compile every stale source, all ``nvcc`` processes at once. Returns
-    seconds spent per library built (empty when everything was current).
-    ``nvcc``'s output, ``-Xptxas -v`` register and spill lines included,
-    is kept beside each library as ``<lib>.log``."""
+    """Compile every source of every stale library, all ``nvcc`` processes
+    at once, then link each library. Returns seconds spent per library
+    built (empty when everything was current). ``nvcc``'s output,
+    ``-Xptxas -v`` register and spill lines included, is kept beside each
+    library as ``<lib>.log``."""
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
     t0 = time.perf_counter()
-    for name, src in _sources().items():
-        out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT),
-                       tmp, out, cmd)
-    times, failed = {}, []
-    for name, (proc, tmp, out, cmd) in procs.items():
-        log, _ = proc.communicate()
-        out.with_suffix(".log").write_bytes(log)
+    stale = {name: srcs for name, srcs in _sources().items()
+             if not library_path(name).exists()}
+    tag = f"{_digest()}.tmp{os.getpid()}"
+    procs = {}
+    for name, srcs in stale.items():
+        for src in srcs:
+            obj = BUILD_DIR / f"{src.stem}_{tag}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT),
+                          obj, cmd)
+    logs: Dict[Path, bytes] = {}
+    failed = []
+    for src, (proc, obj, cmd) in procs.items():
+        logs[src], _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{' '.join(cmd)}\n{log.decode(errors='replace')}")
-            continue
-        os.replace(tmp, out)
-        times[name] = time.perf_counter() - t0
+            failed.append(f"{' '.join(cmd)}\n"
+                          f"{logs[src].decode(errors='replace')}")
+    times = {}
+    for name, srcs in stale.items():
+        out = library_path(name)
+        if not failed:
+            tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+            cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                   *(str(procs[src][1]) for src in srcs)]
+            link = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT)
+            if link.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n"
+                              f"{link.stdout.decode(errors='replace')}")
+            else:
+                os.replace(tmp, out)
+                times[name] = time.perf_counter() - t0
+        out.with_suffix(".log").write_bytes(b"".join(
+            f"== {src.name}\n".encode() + logs[src] for src in srcs))
+        for src in srcs:
+            procs[src][1].unlink(missing_ok=True)
     if failed:
         raise RuntimeError("ray_tpu_torch: nvcc failed:\n" + "\n".join(failed))
     return times
@@ -100,7 +126,8 @@ def build_all() -> Dict[str, float]:
 
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if stale."""
+    """The loaded library for ``csrc/<name>.cu`` and its parts, built first
+    if stale."""
     if name not in _sources():
         raise KeyError(f"no CUDA source csrc/{name}.cu")
     path = library_path(name)

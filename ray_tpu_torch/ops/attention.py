@@ -15,10 +15,9 @@ built or launched raises. Each wrapper counts its launches in
 
 Kernel layouts: q [BH, Sq, D], k/v [BH, Sk, D], lse/delta [BH, Sq] fp32.
 Public layouts: q, k, v are [batch, num_heads, seq, head_dim]. The kernels
-take float32, bfloat16 and float16 at any head dim from 1 to
-MAX_HEAD_DIM and any B·H (``kernel_route`` says which design runs);
-above MAX_HEAD_DIM a CUDA tensor raises ValueError (ROADMAP R-13), while
-the plain versions on the CPU compute any head dim, as JAX's do.
+take float32, bfloat16 and float16 at any head dim and any B·H, as JAX's
+do (``kernel_route`` says which design runs, at which padded width and in
+how many head-dim chunks).
 
 ``ring_attention`` splits the sequence over a mesh axis (K/V shards
 rotated around the ring by point-to-point ops); its blockwise partials are
@@ -45,7 +44,6 @@ from ray_tpu_torch.ops import _build
 NEG_INF = -1e30
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-MAX_HEAD_DIM = 256
 KERNEL_TILE = 64   # keys per step of K1: kTile and kFwdKeyTile in csrc/
 
 
@@ -198,18 +196,21 @@ KERNELS = {
 }
 
 
-def kernel_route(dtype: torch.dtype, head_dim: int) -> Tuple[str, int]:
-    """(design, padded head dim) of the kernels that take ``dtype`` at
-    ``head_dim``, as the library's dispatch decides: ("tensor cores", 64
-    or 128) for bf16 at 33-128, else ("CUDA cores", 16/32/64/128/256).
-    Needs the built library (the card's toolchain)."""
+def kernel_route(dtype: torch.dtype, head_dim: int) -> Tuple[str, int, int]:
+    """(design, padded head dim, head-dim chunks) of the kernels that take
+    ``dtype`` at ``head_dim``, as the library's dispatch decides: ("tensor
+    cores", 64/128/192/256, 1) for bf16 and fp16 at 1-256, ("CUDA cores",
+    16/32/64/128/256, 1) for fp32, and above 256 the same designs at 192 or
+    256 over the fewest chunks of at most 256 columns. Needs the built
+    library (the card's toolchain)."""
     fn = _build.load_library("flash_attention").rtt_flash_route
-    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-    r = fn(_DTYPES[dtype], int(head_dim))
-    if r == 0:
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    if not fn(_DTYPES[dtype], int(head_dim), out):
         raise ValueError(f"no flash kernel takes {dtype} at head_dim "
                          f"{head_dim}")
-    return ("tensor cores", -r) if r < 0 else ("CUDA cores", r)
+    return ("tensor cores" if out[0] else "CUDA cores"), out[1], out[2]
 
 
 def _check_inputs(q, k, v, *extra) -> None:
@@ -220,9 +221,9 @@ def _check_inputs(q, k, v, *extra) -> None:
         raise TypeError(f"flash kernels take float32, bfloat16 or float16 "
                         f"q/k/v of one dtype, got {q.dtype}/{k.dtype}/"
                         f"{v.dtype}")
-    if not 1 <= q.shape[-1] <= MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {q.shape[-1]} is above the flash "
-                         f"kernels' limit of {MAX_HEAD_DIM} (ROADMAP R-13)")
+    if q.shape[-1] < 1:
+        raise ValueError(f"head_dim {q.shape[-1]}: the flash kernels need "
+                         f"at least 1")
     if (k.shape != v.shape or q.shape[0] != k.shape[0]
             or q.shape[2] != k.shape[2]):
         raise ValueError(f"shape mismatch q {tuple(q.shape)} k "

@@ -12,8 +12,8 @@ seq_q > seq_k the first rows see no key; both flash paths give 0 there
 against JAX's flash_attention. In bf16 and fp16
 (test_flash_matches_jax_bf16) the bound is the one the card holds each
 kernel to against its plain version (chip_smoke.py's RTOL note). The head
-dims cover the kernels' compiled widths (16-128) and widths the card pads
-(48, 80, 96).
+dims cover the kernels' compiled widths (16-256), widths the card pads
+(48, 80, 96) and widths it cuts into chunks of at most 256 (320, 512).
 """
 
 import re
@@ -81,6 +81,12 @@ CASES = [
     (64, 128, 80, False, 32, 64),
     (96, 32, 48, True, 32, 32),     # seq_q > seq_k: 64 rows see no key
     (64, 32, 80, True, 64, 32),     # masked rows inside a visited block
+    # the tensor cores' wide widths (192, 256) and heads the card cuts into
+    # chunks (320: 2 x 160, 512: 2 x 256)
+    (64, 64, 192, True, 32, 32),
+    (64, 128, 256, False, 32, 64),
+    (96, 32, 320, True, 32, 32),    # seq_q > seq_k: 64 rows see no key
+    (64, 32, 512, True, 64, 32),    # masked rows inside a visited block
 ]
 
 
@@ -95,12 +101,14 @@ def test_flash_matches_jax(jx, sq, sk, d, causal, bq, bk):
 
 
 # bf16 at the main path's head dims, where the card runs the tensor-core
-# kernels, and at head dim 96 (padded to 128 there); fp16 at 64 and 80 (the
-# card's CUDA-core kernels): (head_dim, causal, dtype) at seq 128, blocks 64.
+# kernels, and at head dim 96 (padded to 128 there); fp16 at 64 and 80;
+# bf16 at 256 (Gemma's head), fp16 at 192 and bf16 at 320 (two chunks of
+# 160 on the card): (head_dim, causal, dtype) at seq 128, blocks 64.
 BF16_CASES = [(64, True, "bfloat16"), (64, False, "bfloat16"),
               (128, True, "bfloat16"), (128, False, "bfloat16"),
               (96, True, "bfloat16"), (64, True, "float16"),
-              (80, True, "float16")]
+              (80, True, "float16"), (256, True, "bfloat16"),
+              (192, True, "float16"), (320, True, "bfloat16")]
 MAX_DIFFERING = 0.03   # share of elements not equal bit for bit
 
 

@@ -79,16 +79,108 @@ def test_cuda_tensor_launches_kernel(card):
 
 @pytest.mark.cuda
 def test_unsupported_input_raises(card):
-    """Head dims above 256 raise (ROADMAP R-13); JAX's kernel takes them,
-    and so do the plain versions on the CPU."""
+    """Head dim 320 computes on the card (ROADMAP R-13, closed: two chunks
+    of 160, on the tensor cores in bf16 and fp16 and on the CUDA cores in
+    fp32) and matches the plain version, as JAX's kernel and the plain
+    versions on the CPU compute it. What the kernels still refuse raises:
+    mixed dtypes, head dim 0, a non-contiguous tensor."""
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        res = chip_smoke.check_case(2, 64, 64, 320, dt, True, 64, 64, card)
+        assert all(ok for _, _, ok, _ in res.values()), (dt, res)
     q = torch.randn((2, 64, 320), generator=card, device="cuda")
-    with pytest.raises(ValueError, match="limit of 256"):
-        A.flash_fwd(q, q, q, causal=True, sm_scale=1.0, block_q=64,
-                    block_k=64)
     c = q.cpu()
-    o, _ = A.flash_fwd(c, c, c, causal=True, sm_scale=1.0, block_q=64,
-                       block_k=64)
+    kw = dict(causal=True, sm_scale=1.0, block_q=64, block_k=64)
+    o, _ = A.flash_fwd(c, c, c, **kw)
     assert o.shape == c.shape and torch.isfinite(o).all()
+    with pytest.raises(TypeError, match="one dtype"):
+        A.flash_fwd(q, q.bfloat16(), q, **kw)
+    z = torch.empty((2, 64, 0), device="cuda")
+    with pytest.raises(ValueError, match="at least 1"):
+        A.flash_fwd(z, z, z, **kw)
+    t = torch.randn((2, 320, 64), generator=card,
+                    device="cuda").transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        A.flash_fwd(t, t, t, **kw)
+
+
+@pytest.mark.cuda
+def test_kernel_routes(card):
+    """bf16 and fp16 on the tensor cores at every head dim, padded to 64,
+    128, 192 or 256 and cut into chunks of at most 256 above it; fp32 on the
+    CUDA cores, chunked the same way."""
+    tc = {16: (64, 1), 32: (64, 1), 48: (64, 1), 64: (64, 1), 80: (128, 1),
+          128: (128, 1), 129: (192, 1), 192: (192, 1), 200: (256, 1),
+          256: (256, 1), 257: (192, 2), 320: (192, 2), 512: (256, 2),
+          576: (192, 3)}
+    for dt in (torch.bfloat16, torch.float16):
+        for d, (dp, nc) in tc.items():
+            assert A.kernel_route(dt, d) == ("tensor cores", dp, nc), (dt, d)
+    cc = {1: (16, 1), 24: (32, 1), 64: (64, 1), 80: (128, 1), 256: (256, 1),
+          320: (256, 2), 576: (256, 3)}
+    for d, (dp, nc) in cc.items():
+        assert A.kernel_route(torch.float32, d) == ("CUDA cores", dp, nc), d
+    with pytest.raises(ValueError, match="no flash kernel"):
+        A.kernel_route(torch.float32, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [192, 256, 512])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_wide_heads_match_plain(card, d, dtype):
+    """K1-K3 at the tensor cores' wide widths (K3 over two warpgroups) and
+    in two chunks of 256 (512), ragged tiles and rows with no key."""
+    res = chip_smoke.check_case(3, 192, 160, d, dtype, True, 64, 32, card)
+    assert all(ok for _, _, ok, _ in res.values()), res
+
+
+def _wide_steps(cfg, weights, toks, device, steps=2):
+    """``steps`` AdamW(3e-4) steps of the port's GPT from ``weights`` on
+    ``device``: [(loss, grad_norm)]."""
+    from ray_tpu_torch.models import gpt as tgpt
+    from ray_tpu_torch.train import train_step as tts
+    model = tgpt.gpt_init(cfg, device=device)
+    model.load_state_dict(weights)
+    opt = tts.adamw(3e-4)
+    state = tts.init_train_state(lambda: model, opt)
+    step = tts.make_train_step(tgpt.gpt_loss, opt)
+    batch = {"tokens": torch.from_numpy(toks).long().to(device)}
+    out = []
+    for _ in range(steps):
+        state, m = step(state, batch)
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_head_tied_gpt_matches_cpu(card, dtype):
+    """Two AdamW steps of a 2-layer GPT at head dim 256 with tied embeddings
+    and RMSNorm eps 1e-6 (tests/test_torch_wide_heads.py's widths, seq 128)
+    on the card against the same steps on the CPU (the kernels' plain
+    versions), from the same weights. fp32 (K1-K3 on the CUDA cores): loss
+    1e-5 and grad norm 1e-4 relative, test_torch_train_step's bounds.
+    bf16 (the tensor cores at 256, K3 over two warpgroups): chip_smoke's
+    step-0 gate, loss 1e-4 and grad norm 2e-3 relative, each step."""
+    from ray_tpu_torch.models import gpt as tgpt
+    cfg = tgpt.GPTConfig(vocab_size=512, d_model=512, n_layers=2, n_heads=2,
+                         d_ff=1024, max_seq=128, tie_embeddings=True,
+                         rmsnorm_eps=1e-6, dtype=dtype)
+    init = tgpt.gpt_init(cfg, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+    weights = {n: p.detach().clone() for n, p in init.state_dict().items()}
+    toks = np.random.default_rng(5).integers(0, 512, (2, 129)).astype(
+        np.int32)
+    before = {n: k.launches for n, k in A.KERNELS.items()}
+    gpu = _wide_steps(cfg, weights, toks, "cuda")
+    assert {n: k.launches - before[n] for n, k in A.KERNELS.items()} == {
+        "flash_fwd": 8, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}
+    cpu = _wide_steps(cfg, weights, toks, "cpu")
+    loss_rtol, norm_rtol = ((1e-5, 1e-4) if dtype == torch.float32 else
+                            (chip_smoke.LOSS_RTOL, chip_smoke.GRAD_NORM_RTOL))
+    print(f"\n[wide head {dtype}] card {gpu} cpu {cpu}")
+    for (gl, gn), (cl, cn) in zip(gpu, cpu):
+        assert abs(gl - cl) <= loss_rtol * abs(cl), (gpu, cpu)
+        assert abs(gn - cn) <= norm_rtol * abs(cn), (gpu, cpu)
 
 
 def _one_card_run(cfg, weights, toks, steps):

@@ -1,0 +1,109 @@
+"""BENCHMARK.json against the files it names, the imports of the
+benchmark's modules, and what a run does where it must not measure."""
+
+import ast
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from harness.cell import BENCH_DIR, load_cell, reader
+
+ROOT = BENCH_DIR.parent
+BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+FORBIDDEN = {"jax", "jaxlib", "flax", "ray_tpu"}
+
+
+def test_top_level_keys_and_names():
+    assert set(BENCH) == {"command", "paths", "run_seconds", "configs",
+                          "workloads", "end_to_end", "per_layer"}
+    names = [m["name"] for m in BENCH["end_to_end"] + BENCH["per_layer"]]
+    names += [w["name"] for w in BENCH["workloads"]]
+    names += [c["name"] for c in BENCH["configs"]]
+    assert len(names) == len(set(names))
+    assert all(NAME.match(n) for n in names)
+    assert 1 <= BENCH["run_seconds"] <= 51
+    e2e = {m["name"] for m in BENCH["end_to_end"]}
+    assert "setup_s" in e2e
+    assert all(0.01 <= m["bound"] <= 0.25 for m in BENCH["end_to_end"])
+    for m in BENCH["per_layer"]:
+        assert m["moves"] in e2e
+
+
+@pytest.mark.parametrize("workload", [w["name"] for w in BENCH["workloads"]])
+def test_every_cell_resolves_to_its_files(workload):
+    cell = load_cell(ROOT, workload)
+    assert cell.traffic["chips"] == cell.chips
+    assert {"grad", "change", "nonfinite"} <= set(cell.limits) <= {
+        "loss", "loss1", "grad", "change", "nonfinite"}
+    assert cell.reference_steps in (2, 3)
+    assert {m["name"] for m in cell.end_to_end} >= {"setup_s",
+                                                    "tokens_per_s"}
+    assert cell.per_layer
+    for m in cell.end_to_end + cell.per_layer:
+        assert callable(reader(m["name"]))
+
+
+def _imports(path: Path) -> set:
+    tree = ast.parse(path.read_text())
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            out.add(node.module.split(".")[0])
+    return out
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(BENCH_DIR)) for p in BENCH_DIR.rglob("*.py")))
+def test_no_module_imports_jax_or_the_jax_package(path):
+    """Top-level names compared whole: ``ray_tpu_torch`` is not
+    ``ray_tpu``."""
+    assert not _imports(BENCH_DIR / path) & FORBIDDEN
+
+
+def test_reference_imports_nothing_of_the_program():
+    """The reference and the benchmark modules it imports."""
+    seen, todo = set(), ["reference"]
+    while todo:
+        mod = todo.pop()
+        seen.add(mod)
+        names = _imports(BENCH_DIR / "harness" / f"{mod}.py")
+        assert "ray_tpu_torch" not in names, mod
+        src = (BENCH_DIR / "harness" / f"{mod}.py").read_text()
+        todo += [m for m in re.findall(r"from harness\.(\w+) import", src)
+                 if m not in seen]
+    assert seen >= {"reference", "spec", "weights"}
+
+
+def _run(cwd, *extra, env=None):
+    workload = BENCH["workloads"][0]["name"]
+    return subprocess.run(
+        [sys.executable, "benchmark/run.py", "--workload", workload,
+         "--seed", str(2 ** 31 + 5), "--seconds", "1", "--trace", "0",
+         *extra], cwd=cwd, capture_output=True, text=True, timeout=300,
+        env=env)
+
+
+def test_a_run_without_a_card_fails_and_prints_no_result():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = _run(ROOT, env=env)
+    assert out.returncode != 0
+    assert out.stdout.strip() == ""
+    assert "CUDA is not available" in out.stderr
+
+
+def test_a_run_beside_no_program_fails(tmp_path):
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path)
+    shutil.copytree(BENCH_DIR, tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    out = _run(tmp_path)
+    assert out.returncode != 0
+    assert out.stdout.strip() == ""

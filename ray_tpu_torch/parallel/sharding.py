@@ -19,12 +19,16 @@ tensors; the pipeline axis keeps a stage's layers of the stacked layout,
 ``parallel.pipeline``); the
 fsdp axis goes to FSDP2, ``fully_shard`` on each layer and on the root over
 the fsdp sub-mesh, with each parameter's sharded dim taken from its spec
-and gradients summed, not averaged. ``gather_params`` returns the whole
-parameters, ``local_params`` the shards that the optimizer updates.
+and gradients summed, not averaged; each of FSDP2's all-gathers and
+reduce-scatters is an ``all_gather`` or ``reduce_scatter`` span with its
+bytes while ``torch.profiler`` runs (``util.spans``). ``gather_params``
+returns the whole parameters, ``local_params`` the shards that the
+optimizer updates.
 """
 
 from __future__ import annotations
 
+import functools
 import re
 from dataclasses import dataclass, field
 import math
@@ -33,6 +37,8 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 from torch import nn
+
+from ray_tpu_torch.util.spans import span
 
 Spec = Tuple[Any, ...]
 
@@ -405,10 +411,39 @@ def _fully_shard(model: nn.Module, mesh, placement: Placement) -> None:
     for layer in getattr(model, "layers", ()):
         fully_shard(layer, **kwargs)
     fully_shard(model, **kwargs)
+    all_gather, reduce_scatter = _spanned_comms()
     for module in model.modules():
         if isinstance(module, FSDPModule):
             module.set_gradient_divide_factor(1.0)
             module.set_force_sum_reduction_for_comms(True)
+            module.set_custom_all_gather(all_gather)
+            module.set_custom_reduce_scatter(reduce_scatter)
+
+
+@functools.cache
+def _spanned_comms():
+    """FSDP2's own all-gather and reduce-scatter, allocation included, each
+    call inside a span (``util.spans``) on the stream FSDP2 issues it on,
+    with the bytes of its unsharded side: the all-gather's output, the
+    reduce-scatter's input."""
+    from torch.distributed.fsdp._fully_shard._fsdp_collectives import (
+        DefaultAllGather, DefaultReduceScatter)
+
+    class AllGather(DefaultAllGather):
+        def __call__(self, output_tensor, input_tensor, group,
+                     async_op=False):
+            with span("all_gather", tensor=output_tensor):
+                return super().__call__(output_tensor, input_tensor, group,
+                                        async_op)
+
+    class ReduceScatter(DefaultReduceScatter):
+        def __call__(self, output_tensor, input_tensor, group, op,
+                     async_op=False):
+            with span("reduce_scatter", tensor=input_tensor):
+                return super().__call__(output_tensor, input_tensor, group,
+                                        op, async_op)
+
+    return AllGather(), ReduceScatter()
 
 
 def local_params(model: nn.Module) -> List[torch.Tensor]:

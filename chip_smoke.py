@@ -148,6 +148,9 @@ Phases, each of which raises on failure:
       eps 1e-6: 2,638,292,992 parameters, checked), batch [4, 1024] at full
       depth: K1-K3 on the tensor cores at 256, 36/18/18 launches a step;
       the peak beside 42.2 GB of fp32 state and the loss chunk's 8.4 GB;
+  (u) the AdamW kernel on one OLMo-7B FSDP rank's leaves (of four) against
+      the plain update, bit for bit, then on those and StableLM-3B's timed
+      beside its bound (28 bytes a parameter) and the plain update;
   (g) one line {"kernels": [...]} (launches from the main path, e);
   (h) last line {"ok": true, "device": {...}}.
 
@@ -623,8 +626,10 @@ def _run_steps(model, n, batch, around=lambda i: contextlib.nullcontext(),
     after it, outside the clock. ``make_loss(mesh)``: the loss function
     (default gpt_loss)."""
     from ray_tpu_torch.models import gpt_loss
+    from ray_tpu_torch.ops import adamw as K
     from ray_tpu_torch.ops.attention import KERNELS
     from ray_tpu_torch.parallel import MeshConfig, build_mesh
+    from ray_tpu_torch.parallel.sharding import local_params
     from ray_tpu_torch.train import adamw, init_train_state, make_train_step
     mesh = build_mesh(MeshConfig(data=1))
     opt = adamw(3e-4)
@@ -632,9 +637,13 @@ def _run_steps(model, n, batch, around=lambda i: contextlib.nullcontext(),
         state = init_train_state(lambda: model, opt, mesh, strategy)
     loss_fn = gpt_loss if make_loss is None else make_loss(mesh)
     step = make_train_step(loss_fn, opt, mesh, strategy)
+    # Every step's update goes through the AdamW kernel, as planned.
+    sizes = [p.numel() for p in local_params(state.params)]
+    plan = (len(K.plan_launches(sizes)), sum(n > 0 for n in sizes))
     losses, norms, times, counts = [], [], [], []
     for i in range(n):
         before = {k: kern.launches for k, kern in KERNELS.items()}
+        opt_before = (K.KERNEL.launches, K.KERNEL.leaves)
         torch.cuda.synchronize()
         with around(i):
             t0 = time.perf_counter()
@@ -647,7 +656,14 @@ def _run_steps(model, n, batch, around=lambda i: contextlib.nullcontext(),
         norms.append(float(metrics["grad_norm"]))
         counts.append({k: kern.launches - before[k]
                        for k, kern in KERNELS.items()})
+        ran = (K.KERNEL.launches - opt_before[0],
+               K.KERNEL.leaves - opt_before[1])
+        if ran != plan:
+            raise AssertionError(f"step {i}: the AdamW kernel's launches "
+                                 f"and leaves {ran}, planned {plan}")
         after(i, state)
+    log(f"    AdamW kernel: {plan[0]} launch(es), {plan[1]} leaves a step "
+        f"in each of {n} steps")
     return losses, norms, times, counts
 
 
@@ -3529,6 +3545,97 @@ def phase_timing_shapes() -> None:
                  "head dim 512")
 
 
+# ---------------------------------------------------------------------------
+# (u) the AdamW kernel
+# ---------------------------------------------------------------------------
+
+# allenai/OLMo-7B-hf at this repo's GPT family (the benchmark's olmo-7b),
+# and the benchmark's FSDP over four cards: one rank's shards.
+OLMO = dict(d_model=4096, n_heads=32, n_layers=32, d_ff=11008,
+            vocab_size=50304)
+OLMO_RANKS = 4
+ADAMW_BYTES = 28       # p, g, mu, nu read and p, mu, nu written, fp32
+
+
+def gpt_leaf_sizes(cfg: dict, shards: int = 1) -> list:
+    """Element counts of the port's GPT leaves at ``cfg``'s widths
+    (embedding, final norm, head unless tied, then per layer two norms,
+    four attention and three MLP weights), each cut along dim 0 into
+    ``shards`` as FSDP2 cuts it: the first rank's."""
+    d, ff, v = cfg["d_model"], cfg["d_ff"], cfg["vocab_size"]
+    shapes = [(v, d), (d,)] + ([] if cfg.get("tie_embeddings") else [(d, v)])
+    shapes += [(d,), (d,), (d, d), (d, d), (d, d), (d, d), (d, ff), (d, ff),
+               (ff, d)] * cfg["n_layers"]
+    return [-(-s[0] // shards) * math.prod(s[1:]) for s in shapes]
+
+
+def phase_adamw() -> dict:
+    """(u) The AdamW kernel (csrc/adamw.cu) on the leaves of one OLMo-7B
+    rank of the benchmark's four (1.72 B parameters) and of StableLM-3B
+    (2.80 B): on the OLMo rank, one step through the kernel against the
+    plain update, bit for bit; on both, each timed (CUDA-event medians of
+    TIMED_RUNS, in the order plain, kernel, kernel, plain) beside its bound,
+    28 bytes a parameter at 3.35 TB/s, with the kernel's launches and
+    leaves a step and the host's ms to issue it."""
+    from ray_tpu_torch.ops import adamw as K
+    from ray_tpu_torch.train import adamw
+    out = {}
+    sets = (("olmo-7b rank", gpt_leaf_sizes(OLMO, OLMO_RANKS), True),
+            ("stablelm-3b", gpt_leaf_sizes(STABLELM), False))
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    for label, sizes, check in sets:
+        n = sum(sizes)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED + 5)
+        opt = adamw(3e-4)
+        params = [torch.randn(s, generator=gen, device="cuda") for s in sizes]
+        grads = [torch.randn(s, generator=gen, device="cuda") * 1e-3
+                 for s in sizes]
+        state = opt.init(params)
+        if check:
+            plain = [p.clone() for p in params]
+            ref = opt.update_plain(grads, opt.init(plain), plain)
+            state = opt.update(grads, state, params)
+            unequal = sum(int((a != b).sum()) for a, b in zip(
+                params + state.mu + state.nu, plain + ref.mu + ref.nu))
+            log(f"[u] {label}: one step, kernel against plain: {unequal} of "
+                f"{3 * n:,} elements of p, mu and nu differ")
+            if unequal:
+                raise AssertionError(f"{label}: the AdamW kernel differs "
+                                     f"from the plain update")
+            del plain, ref
+            torch.cuda.empty_cache()
+        before = (K.KERNEL.launches, K.KERNEL.leaves)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.update(grads, state, params)
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        launches, leaves = (K.KERNEL.launches - before[0],
+                            K.KERNEL.leaves - before[1])
+        if (launches, leaves) != (len(K.plan_launches(sizes)), len(sizes)):
+            raise AssertionError(f"{label}: {launches} launches, {leaves} "
+                                 f"leaves a step")
+        kernel = lambda: opt.update(grads, state, params)   # noqa: E731
+        plain = lambda: opt.update_plain(grads, state, params)  # noqa: E731
+        p1, k1, k2, p2 = (_time_ms(plain, flush), _time_ms(kernel, flush),
+                          _time_ms(kernel, flush), _time_ms(plain, flush))
+        bound = ADAMW_BYTES * n / HBM_BYTES_PER_S * 1e3
+        k_ms = min(k1, k2)
+        out[label] = dict(params=n, leaves=leaves, launches=launches,
+                          ms=k_ms, bound_ms=bound, plain_ms=min(p1, p2),
+                          host_ms=host_ms)
+        log(f"[u] {label}: {n:,} params in {leaves} leaves, {launches} "
+            f"launch(es) a step, issued in {host_ms:.2f} ms of host time; "
+            f"kernel {k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms, "
+            f"bound {bound:.3f} ms ({ADAMW_BYTES * n / 1e9:.1f} GB at "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s): the kernel at "
+            f"{100 * bound / k_ms:.1f}% of it, "
+            f"{ADAMW_BYTES * n / k_ms / 1e9:.3f} TB/s")
+        del params, grads, state
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3548,6 +3655,7 @@ def main() -> int:
     launches, e_step0, e_step_ms = phase_train()
     timing = phase_timing()
     phase_timing_shapes()
+    phase_adamw()
     phase_moe()
     phase_medium()
     phase_strategies(e_step0)

@@ -144,3 +144,23 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.rtt_error_string(err).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA error {err}: {msg}")
+
+
+class CudaKernel:
+    """One C entry point of a ``csrc`` library, with its launch count.
+
+    ``launches`` goes up by one for each launch that returned no error,
+    and nowhere else."""
+
+    def __init__(self, name: str, source: str, symbol: str, argtypes):
+        self.name, self.source, self.symbol = name, source, symbol
+        self.argtypes = argtypes
+        self.launches = 0
+
+    def __call__(self, *args) -> None:
+        lib = load_library(self.source)
+        fn = getattr(lib, self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        check(lib, fn(*args), self.name)
+        self.launches += 1

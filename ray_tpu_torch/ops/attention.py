@@ -40,6 +40,7 @@ import torch
 import torch.distributed as dist
 
 from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops._build import CudaKernel
 
 NEG_INF = -1e30
 
@@ -161,26 +162,6 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, causal: bool,
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
-
-class CudaKernel:
-    """One C entry point of a ``csrc`` library, with its launch count.
-
-    ``launches`` goes up by one for each launch that returned no error,
-    and nowhere else."""
-
-    def __init__(self, name: str, source: str, symbol: str, argtypes):
-        self.name, self.source, self.symbol = name, source, symbol
-        self.argtypes = argtypes
-        self.launches = 0
-
-    def __call__(self, *args) -> None:
-        lib = _build.load_library(self.source)
-        fn = getattr(lib, self.symbol)
-        fn.argtypes = self.argtypes
-        fn.restype = ctypes.c_int
-        _build.check(lib, fn(*args), self.name)
-        self.launches += 1
-
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {

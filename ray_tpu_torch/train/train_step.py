@@ -58,6 +58,7 @@ import torch.distributed as dist
 from torch import nn
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
+from ray_tpu_torch.ops.adamw import adamw_update
 from ray_tpu_torch.parallel.mesh import AXIS_ORDER, Mesh, data_parallel
 from ray_tpu_torch.parallel.sharding import (ShardingStrategy, entry_axes,
                                              local_params, shard_params,
@@ -85,16 +86,38 @@ class AdamW:
         return AdamWState([torch.zeros_like(p) for p in params],
                           [torch.zeros_like(p) for p in params])
 
+    def _bias_corrections(self, count: int) -> Tuple[float, float]:
+        """optax's fp32 bias corrections for step ``count``."""
+        return (float(np.float32(1.0) - np.float32(self.b1) ** count),
+                float(np.float32(1.0) - np.float32(self.b2) ** count))
+
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor], state: AdamWState,
                params: Sequence[torch.Tensor]) -> AdamWState:
         """Apply one update to ``params`` in place; returns the new state
-        (its moments are the old tensors, updated in place)."""
+        (its moments are the old tensors, updated in place). CUDA leaves
+        go through one kernel (``ops.adamw``: a launch for up to
+        ``MAX_LEAVES`` leaves, the same numbers as ``update_plain``'s on
+        the card, bit for bit), which raises on what it does not take; CPU
+        leaves take ``update_plain``."""
+        if not any(p.is_cuda for p in params):
+            return self.update_plain(grads, state, params)
+        count = state.count + 1
+        bc1, bc2 = self._bias_corrections(count)
+        adamw_update(params, grads, state.mu, state.nu, lr=self.lr,
+                     b1=self.b1, b2=self.b2, eps=self.eps,
+                     weight_decay=self.weight_decay, bc1=bc1, bc2=bc2)
+        return AdamWState(state.mu, state.nu, count)
+
+    @torch.no_grad()
+    def update_plain(self, grads: Sequence[torch.Tensor], state: AdamWState,
+                     params: Sequence[torch.Tensor]) -> AdamWState:
+        """``update`` in plain PyTorch, on any device: about 18 elementwise
+        kernels a leaf."""
         count = state.count + 1
         # optax's rounding points: fp32 bias corrections, and each product
         # rounded before its sum (no fused multiply-add).
-        bc1 = float(np.float32(1.0) - np.float32(self.b1) ** count)
-        bc2 = float(np.float32(1.0) - np.float32(self.b2) ** count)
+        bc1, bc2 = self._bias_corrections(count)
         for p, g, mu, nu in zip(params, grads, state.mu, state.nu):
             g = g.to(mu.dtype)
             mu.copy_(g * (1.0 - self.b1) + mu * self.b1)

@@ -8,6 +8,7 @@ defines the output, rtol 1e-5 in fp32, 2^-7 (one bf16 ulp) in bf16 and
 2^-10 (one fp16 ulp) in fp16; lse within 1e-4 absolute.
 """
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -1022,3 +1023,137 @@ def test_collective_groups_of_actors_across_cards(monkeypatch):
                                           inp["half"][5 - r])
     np.testing.assert_array_equal(outs[1]["recv"], inp["msg"])
     assert all(r["same"] for r in nccl + gloo)
+
+
+# ---------------------------------------------------------------------------
+# The AdamW kernel (csrc/adamw.cu) against the plain update, on the card
+# ---------------------------------------------------------------------------
+
+def _adamw_sets(card, sizes, gdtypes, offset):
+    """Two equal sets of fp32 leaves on the card (one for the kernel, one
+    for the plain version) and a draw of gradients per step. ``offset`` >
+    0: every tensor a view into a flat buffer that many elements past a
+    16-byte boundary, which the kernel takes one element a thread."""
+    def placed(t):
+        if not offset:
+            return t.contiguous()
+        flat = torch.empty(t.numel() + offset, dtype=t.dtype,
+                           device=t.device)
+        view = flat[offset:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    params = [placed(torch.randn(n, generator=card, device="cuda"))
+              for n in sizes]
+    plain = [p.clone() for p in params]
+
+    def grads():
+        # magnitudes 1e-10 to 1: gradients below eps and above it
+        out = []
+        for n, dt in zip(sizes, gdtypes):
+            g = torch.randn(n, generator=card, device="cuda") * 10.0 ** (
+                -10 * torch.rand(n, generator=card, device="cuda"))
+            out.append(placed(g.to(dt)))
+        return out
+    return params, plain, grads
+
+
+def _adamw_against_plain(card, sizes, gdtypes, offset=0, steps=3):
+    """``steps`` updates through the kernel (``AdamW.update`` on CUDA) and
+    through ``update_plain`` on equal leaves and gradients; returns the
+    kernel's launches and leaves over them, after asserting p, mu and nu
+    equal bit for bit after every step."""
+    from ray_tpu_torch.ops import adamw as K
+    from ray_tpu_torch.train import train_step as tts
+    opt = tts.adamw(3e-4)
+    params, plain, grads = _adamw_sets(card, sizes, gdtypes, offset)
+    state = opt.init(params)
+    ref = opt.init(plain)
+    before = (K.KERNEL.launches, K.KERNEL.leaves)
+    for step in range(steps):
+        gs = grads()
+        state = opt.update(gs, state, params)
+        ref = opt.update_plain(gs, ref, plain)
+        torch.cuda.synchronize()
+        for name, a, b in (("p", params, plain), ("mu", state.mu, ref.mu),
+                           ("nu", state.nu, ref.nu)):
+            for i, (x, y) in enumerate(zip(a, b)):
+                assert torch.equal(x, y), (
+                    step, name, i, sizes[i], gdtypes[i],
+                    int((x != y).sum()), float((x - y).abs().max()))
+    assert state.count == ref.count == steps
+    return (K.KERNEL.launches - before[0], K.KERNEL.leaves - before[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+def test_adamw_kernel_matches_plain_bit_for_bit(card, offset):
+    """Leaves of 1, 3, 4,097 and 2^20 + 5 elements (the vector path, its
+    scalar tail, and leaves smaller than a vector), gradients in fp32, bf16
+    and fp16; aligned, and at an offset that leaves only the scalar path:
+    three steps, p, mu and nu equal to the plain version's on the card bit
+    for bit; one launch a step, every leaf counted."""
+    sizes = [1, 3, 4097, 2 ** 20 + 5, 4096 * 3]
+    gdtypes = [torch.float32, torch.bfloat16, torch.bfloat16, torch.float32,
+               torch.float16]
+    assert _adamw_against_plain(card, sizes, gdtypes, offset) == (3, 15)
+
+
+@pytest.mark.cuda
+def test_adamw_kernel_takes_more_launches_past_its_table(card):
+    """MAX_LEAVES + 5 leaves need two launches a step, as planned; empty
+    leaves take none and are not counted."""
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import adamw as K
+    lib = _build.load_library("adamw")
+    lib.rtt_adamw_max_leaves.restype = ctypes.c_int
+    assert lib.rtt_adamw_max_leaves() == K.MAX_LEAVES
+    sizes = [1 + (7 * i) % 50 for i in range(K.MAX_LEAVES + 5)] + [0, 0]
+    gdtypes = [torch.bfloat16 if i % 3 else torch.float32
+               for i in range(len(sizes))]
+    plan = K.plan_launches(sizes)
+    assert [len(g) for g in plan] == [K.MAX_LEAVES, 5]
+    assert _adamw_against_plain(card, sizes, gdtypes) == (
+        3 * len(plan), 3 * (K.MAX_LEAVES + 5))
+
+
+@pytest.mark.cuda
+def test_adamw_kernel_makes_no_host_sync(card):
+    """The update on CUDA leaves makes no synchronising call: it passes
+    under torch.cuda.set_sync_debug_mode("error"), under which a read-back
+    fails."""
+    from ray_tpu_torch.train import train_step as tts
+    opt = tts.adamw(3e-4)
+    params = [torch.randn(n, generator=card, device="cuda")
+              for n in (3, 4097, 2 ** 20 + 5)]
+    grads = [torch.randn_like(p).bfloat16() for p in params]
+    state = opt.update(grads, opt.init(params), params)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            state = opt.update(grads, state, params)
+        with pytest.raises(RuntimeError):
+            params[0].sum().item()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert state.count == 4
+
+
+@pytest.mark.cuda
+def test_adamw_kernel_refuses(card):
+    """On CUDA leaves the update runs the kernel or raises: an fp16
+    master, a non-contiguous leaf, leaves on two devices."""
+    from ray_tpu_torch.ops import adamw as K
+    from ray_tpu_torch.train import train_step as tts
+    opt = tts.adamw(3e-4)
+    p = torch.randn((64, 32), generator=card, device="cuda")
+    g = torch.randn_like(p)
+    before = (K.KERNEL.launches, K.KERNEL.leaves)
+    cases = [([p.half()], [g], TypeError, "fp32 parameters"),
+             ([p.t()], [g.t()], ValueError, "contiguous"),
+             ([p], [g.cpu()], ValueError, "one device")]
+    for params, grads, error, match in cases:
+        with pytest.raises(error, match=match):
+            opt.update(grads, opt.init(params), params)
+    assert (K.KERNEL.launches, K.KERNEL.leaves) == before

@@ -192,3 +192,114 @@ def test_sharding_is_not_ported(kw, error, match):
                       lambda: pytest.fail("init_fn ran"), opt, **kw)):
         with pytest.raises(error, match=match):
             build()
+
+
+# ---------------------------------------------------------------------------
+# The AdamW kernel's launch plan and checks, and the plain path on the CPU
+# (the kernel itself runs on the card: tests/test_torch_cuda.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("sizes,max_leaves,plan", [
+    ([7], 720, [[0]]),
+    ([5] * 1500, 720, [list(range(720)), list(range(720, 1440)),
+                       list(range(1440, 1500))]),
+    ([3, 0, 4, 0, 0, 9, 1], 2, [[0, 2], [5, 6]]),
+    ([0, 0], 720, []),
+    ([2 ** 31, 1, 2 ** 20 + 5], 1, [[0], [1], [2]]),
+])
+def test_adamw_launch_plan(sizes, max_leaves, plan):
+    """Leaves go to launches in order, at most ``max_leaves`` each (the
+    table that fits a launch's parameters), whatever their sizes; empty
+    leaves go nowhere."""
+    from ray_tpu_torch.ops import adamw as K
+    assert K.plan_launches(sizes, max_leaves) == plan
+
+
+def test_adamw_launch_plan_default_fits_one_launch_a_model():
+    """A GPT's leaves (3 + 9 a layer: 291 at 32 layers) take one launch."""
+    from ray_tpu_torch.ops import adamw as K
+    assert K.MAX_LEAVES == 720
+    assert len(K.plan_launches([1] * (3 + 9 * 32))) == 1
+    assert [len(g) for g in K.plan_launches([1] * 1441)] == [720, 720, 1]
+
+
+def test_adamw_constants_round_as_torch():
+    """The kernel's header holds each scalar as PyTorch rounds a Python
+    float for an fp32 tensor, and 1/bc in fp32."""
+    from ray_tpu_torch.ops import adamw as K
+    opt = tts.adamw(3e-4)
+    bc1, bc2 = opt._bias_corrections(3)
+    got = K.constants(opt.lr, opt.b1, opt.b2, opt.eps, opt.weight_decay,
+                      bc1, bc2)
+    one = torch.ones((), dtype=torch.float32)
+    want = [one * s for s in (1.0 - opt.b1, opt.b1, 1.0 - opt.b2, opt.b2)]
+    want += [one / (one * bc1), one / (one * bc2)]
+    want += [one * s for s in (opt.eps, opt.weight_decay, -opt.lr)]
+    assert got.dtype == np.float32
+    assert got.tolist() == [float(w) for w in want]
+
+
+def _adamw_before(opt, grads, state, params):
+    """``AdamW.update`` as it was before the kernel, kept here verbatim."""
+    count = state.count + 1
+    bc1 = float(np.float32(1.0) - np.float32(opt.b1) ** count)
+    bc2 = float(np.float32(1.0) - np.float32(opt.b2) ** count)
+    for p, g, mu, nu in zip(params, grads, state.mu, state.nu):
+        g = g.to(mu.dtype)
+        mu.copy_(g * (1.0 - opt.b1) + mu * opt.b1)
+        nu.copy_((g * g) * (1.0 - opt.b2) + nu * opt.b2)
+        upd = (mu / bc1) / (torch.sqrt(nu / bc2) + opt.eps)
+        upd = upd + p * opt.weight_decay
+        p.add_(upd * -opt.lr)
+    return tts.AdamWState(state.mu, state.nu, count)
+
+
+@pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16])
+def test_adamw_cpu_takes_plain_path(gdtype):
+    """CPU leaves take the plain version and launch nothing: three steps
+    equal the update as it was before the kernel, bit for bit."""
+    from ray_tpu_torch.ops import adamw as K
+    gen = torch.Generator().manual_seed(0)
+    sizes = [(1,), (3,), (4097,), (64, 33)]
+    opt = tts.adamw(3e-4)
+    params = [torch.randn(s, generator=gen) for s in sizes]
+    ref = [p.clone() for p in params]
+    state, ref_state = opt.init(params), opt.init(ref)
+    before = (K.KERNEL.launches, K.KERNEL.leaves)
+    for _ in range(3):
+        grads = [torch.randn(s, generator=gen).to(gdtype) for s in sizes]
+        state = opt.update(grads, state, params)
+        ref_state = _adamw_before(opt, grads, ref_state, ref)
+    assert (K.KERNEL.launches, K.KERNEL.leaves) == before
+    assert state.count == ref_state.count == 3
+    for a, b in zip(params + state.mu + state.nu,
+                    ref + ref_state.mu + ref_state.nu):
+        assert torch.equal(a, b)
+
+
+def _leaves(n=3, **over):
+    """n leaves of (p, g, mu, nu) on the CPU, with ``over``'s changes."""
+    t = {k: [torch.zeros(4, 5) for _ in range(n)]
+         for k in ("params", "grads", "mu", "nu")}
+    for k, fn in over.items():
+        t[k][1] = fn(t[k][1])
+    return t
+
+
+@pytest.mark.parametrize("over,error,match", [
+    (dict(params=lambda t: t.half()), TypeError, "fp32 parameters"),
+    (dict(mu=lambda t: t.bfloat16()), TypeError, "fp32 parameters"),
+    (dict(grads=lambda t: t.double()), TypeError, "gradients in"),
+    (dict(params=lambda t: t.t().contiguous().t()), ValueError, "contiguous"),
+    (dict(nu=lambda t: t.reshape(5, 4)), ValueError, "shapes differ"),
+    (dict(grads=lambda t: t.to("meta")), ValueError, "one device"),
+])
+def test_adamw_kernel_refuses(over, error, match):
+    """What the kernel does not take raises before any launch."""
+    from ray_tpu_torch.ops import adamw as K
+    with pytest.raises(error, match=match):
+        K.check_leaves(**_leaves(**over))
+    K.check_leaves(**_leaves())
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        K.adamw_update(**_leaves(), lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+                       weight_decay=1e-4, bc1=0.1, bc2=0.001)

@@ -1,5 +1,6 @@
 """A cell of ``BENCHMARK.json`` resolved to its files, found by name: the
-configuration's file (``configs``), the traffic mix
+configuration's file (``configs``) and its architecture's spec
+(``benchmark/archs/<arch>/``, ``harness/arch.py``), the traffic mix
 (``benchmark/traffic/<traffic>.json``), its check's limits and the steps
 the reference follows (``benchmark/limits/<workload>.json``) and a reader for each metric it
 reports (``benchmark/metrics/<metric>.py``)."""
@@ -12,7 +13,7 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, Dict, List
 
-from harness.spec import ModelSpec
+from harness import arch
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
 
@@ -22,7 +23,7 @@ class Cell:
     name: str
     chips: int
     config: dict
-    spec: ModelSpec
+    spec: object           # the architecture's spec of ``config``
     traffic: dict
     limits: Dict[str, float]
     reference_steps: int
@@ -53,7 +54,7 @@ def load_cell(root: Path, workload: str) -> Cell:
     per_layer = [m for m in bench["per_layer"]
                  if (workload in m["workloads"] if "workloads" in m
                      else m["moves"] in reported)]
-    return Cell(workload, w["chips"], config, ModelSpec.from_config(config),
+    return Cell(workload, w["chips"], config, arch.spec(config),
                 traffic, check["limits"], check["reference_steps"], e2e,
                 per_layer)
 

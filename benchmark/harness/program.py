@@ -2,8 +2,19 @@
 own entry points (``build_mesh`` -> ``init_train_state`` ->
 ``make_train_step``, batches through ``device_batch_stream``), and the
 readings of its state that the check compares. The benchmark takes from the
-program only these entry points, its parameters and optimizer state as
-the step leaves them, and its kernels' launch counters."""
+program only these entry points, the model and loss that the
+architecture's ``archs/<arch>/program.py`` names, its parameters and
+optimizer state as the step leaves them, and its kernels' launch
+counters.
+
+What ``Program`` calls of an architecture's ``program.py``:
+
+- ``model(spec, traffic, device)``: the port's model for the spec at the
+  traffic's sequence, type and remat policy, whose parameters are the
+  spec's leaves by name and shape; the seed's weights are copied into it;
+- ``loss_fn(spec, traffic)``: the loss function ``make_train_step`` takes;
+- ``launches()`` (optional): further launch counters of the port, {name:
+  count}, reported beside K1-K3's."""
 
 from __future__ import annotations
 
@@ -16,7 +27,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from harness.spec import ModelSpec
+from harness import arch
 from harness.weights import block_weights
 
 
@@ -41,10 +52,9 @@ class Program:
     update; spans around the feed, the step and the optimizer while
     ``spans`` is a list."""
 
-    def __init__(self, spec: ModelSpec, traffic: dict, pool: np.ndarray,
-                 seed: int, device: str = "cuda", trace: bool = False):
+    def __init__(self, spec, traffic: dict, pool: np.ndarray, seed: int,
+                 device: str = "cuda", trace: bool = False):
         from ray_tpu_torch.data.feed import device_batch_stream
-        from ray_tpu_torch.models import GPTConfig, gpt_init, gpt_loss
         from ray_tpu_torch.parallel import MeshConfig, build_mesh
         from ray_tpu_torch.train.train_step import (AdamW, init_train_state,
                                                     make_train_step)
@@ -54,13 +64,7 @@ class Program:
         self.cuda = self.device.type == "cuda"
         self.Event = torch.cuda.Event if self.cuda else HostEvent
         self.trace = trace       # device events around each update
-        self.cfg = GPTConfig(
-            vocab_size=spec.vocab, d_model=spec.d_model,
-            n_layers=spec.n_layers, n_heads=spec.n_heads, d_ff=spec.d_ff,
-            max_seq=traffic["seq"], dtype=getattr(torch, traffic["dtype"]),
-            rope_theta=spec.rope_theta, rmsnorm_eps=spec.norm_eps,
-            remat=True, remat_policy=traffic["remat"], attention="flash",
-            tie_embeddings=spec.tied)
+        self.arch = arch.module(spec, "program")
         import torch.distributed as dist
         world = dist.get_world_size() if dist.is_initialized() else 1
         devices = None if self.cuda else ["cpu"] * world
@@ -90,21 +94,24 @@ class Program:
         self.state = init_train_state(self._init, self.opt, self.mesh,
                                       strategy)
         self.model = self.state.params
-        self.step_fn = make_train_step(gpt_loss, self.opt, self.mesh,
-                                       strategy)
+        self.step_fn = make_train_step(self.arch.loss_fn(spec, traffic),
+                                       self.opt, self.mesh, strategy)
         batches = ({"tokens": pool[i]} for i in itertools.cycle(
             range(pool.shape[0])))
         self.feed = device_batch_stream(batches, self.mesh, strategy,
                                         device=None if self.cuda else "cpu")
 
     def _init(self):
-        """init_fn of ``init_train_state``: the port's GPT with the
-        benchmark's weights, copied in by name, one block at a time."""
-        from ray_tpu_torch.models import gpt_init
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(0)
-        model = gpt_init(self.cfg, device=self.device, generator=gen)
+        """init_fn of ``init_train_state``: the architecture's model with
+        the benchmark's weights, copied in by name, one block at a time."""
+        model = self.arch.model(self.spec, self.traffic, self.device)
         params = dict(model.named_parameters())
+        want = {n: tuple(s) for b in self.spec.blocks() for n, s in b}
+        have = {n: tuple(p.shape) for n, p in params.items()}
+        if have != want:
+            raise ValueError(
+                "the model's parameters are not the spec's leaves: "
+                f"{sorted(set(have.items()) ^ set(want.items()))[:8]}")
         with torch.no_grad():
             for b in range(len(self.spec.blocks())):
                 for name, w in block_weights(self.spec, self.seed, b,
@@ -177,8 +184,11 @@ class Program:
         return out
 
     def launches(self) -> Dict[str, int]:
+        """K1-K3's launch counters, and the architecture's own."""
         from ray_tpu_torch.ops.attention import KERNELS
-        return {k: kern.launches for k, kern in KERNELS.items()}
+        out = {k: kern.launches for k, kern in KERNELS.items()}
+        more = getattr(self.arch, "launches", None)
+        return {**out, **more()} if more else out
 
     def peak_bytes(self) -> int:
         return torch.cuda.max_memory_allocated(self.device) if self.cuda \

@@ -1,17 +1,36 @@
-"""The plain reference: the decoder and its AdamW steps in plain PyTorch,
-float32 with TF32 off, written from the architecture's description
-(RoPE over the whole head, RMSNorm, SwiGLU, causal softmax attention, mean
-next-token cross-entropy; optax's AdamW). It imports nothing of the program
-and takes nothing the program made: its weights are drawn again from the
-seed (``weights.block_weights``), its batches are the benchmark's tokens.
+"""The plain reference: a decoder and its AdamW steps (optax's AdamW) in
+plain PyTorch, float32 with TF32 off. This is the runner the
+architectures share: each architecture's own layer and head
+(``archs/<arch>/reference.py``, written from its description) run under
+it. It imports nothing of the program and takes nothing the program
+made: its weights are drawn again from the seed (``weights.
+block_weights``), its batches are the benchmark's tokens.
 
 It runs after the measured window, once the program's state is freed,
 layer by layer and one sequence at a time, so that it fits beside its own
-fp32 weights and moments: a forward pass keeps each layer's input, the
-backward pass runs each layer again with autograd on, and each block is
-updated as soon as its gradient is whole. Over several ranks (a process
-group initialised), each takes its share of the rows, as ZeRO does
-(``_Group``).
+fp32 weights and moments: a forward pass without gradients keeps each
+layer's input, the backward pass runs each layer again with autograd on,
+and each block is updated as soon as its gradient is whole. Over several
+ranks (a process group initialised), each takes its share of the rows, as
+ZeRO does (``_Group``).
+
+What the runner calls of an architecture's ``reference.py``, with ``mm``
+the runner's matrix product:
+
+- ``prepare(spec, seq, device) -> ctx``: what every layer of a step
+  shares (RoPE's tables);
+- ``layer(spec, i, w, x, ctx, mm, stats)``: layer ``i`` on one sequence x
+  [S, d], ``w`` its leaves by the names under ``layers.<i>.``; returns
+  its output, or ``(output, term, row_stats)``. In the pass without
+  gradients ``stats`` is None, and ``row_stats`` (a tensor, or None) are
+  this sequence's statistics, which the runner sums over every row and
+  rank; in the recompute ``stats`` is that sum, and ``term`` (a scalar,
+  or None) is this sequence's share of a term of the loss, such as an
+  auxiliary loss of experts, which is added to the loss and whose
+  gradient flows;
+- ``head(spec, w, x, targets, mm)``: the next-token loss of one sequence,
+  summed over its positions, ``w`` block 0's leaves but ``embed.table``
+  (which the runner's lookup reads).
 
 ``precision="fp8"`` is the control: every product takes its inputs rounded
 to float8 (e4m3 forward, e5m2 for gradients, one scale per tensor), the
@@ -21,12 +40,11 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
-from harness.spec import ModelSpec
+from harness import arch
 from harness.weights import block_weights
 
 _FP8_MAX = {torch.float8_e4m3fn: 448.0, torch.float8_e5m2: 57344.0}
@@ -62,53 +80,6 @@ def _matmul(precision: str):
     raise ValueError(f"unknown precision {precision!r}")
 
 
-def _rmsnorm(x, scale, eps: float):
-    return x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps) \
-        * scale
-
-
-def _rope_tables(spec: ModelSpec, seq: int, device):
-    half = spec.head_dim // 2
-    freqs = spec.rope_theta ** (-torch.arange(
-        0, half, dtype=torch.float32, device=device) / half)
-    angles = torch.arange(seq, dtype=torch.float32, device=device)[:, None] \
-        * freqs
-    return torch.cos(angles), torch.sin(angles)
-
-
-def _rope(x, cos, sin):
-    """x: [H, S, D], the first half of each head rotated against the
-    second."""
-    half = x.shape[-1] // 2
-    x1, x2 = x[..., :half], x[..., half:]
-    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-
-
-def layer_forward(spec: ModelSpec, w: Dict[str, torch.Tensor], x, rope,
-                  mm=torch.matmul):
-    """One decoder layer on one sequence x [S, d]; ``w`` by the names under
-    the layer (``attn.wq``, ``mlp.w_up``, ``ln1.scale``, ...)."""
-    s, d = x.shape
-    h, hd = spec.n_heads, spec.head_dim
-    cos, sin = rope
-    a = _rmsnorm(x, w["ln1.scale"], spec.norm_eps)
-
-    def heads(name):
-        return mm(a, w[name]).view(s, h, hd).transpose(0, 1)
-
-    q = _rope(heads("attn.wq"), cos, sin)
-    k = _rope(heads("attn.wk"), cos, sin)
-    v = heads("attn.wv")
-    scores = mm(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(hd))
-    causal = torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
-    probs = torch.softmax(scores.masked_fill(~causal, float("-inf")), dim=-1)
-    o = mm(probs, v).transpose(0, 1).reshape(s, d)
-    x = x + mm(o, w["attn.wo"])
-    m = _rmsnorm(x, w["ln2.scale"], spec.norm_eps)
-    return x + mm(F.silu(mm(m, w["mlp.w_gate"])) * mm(m, w["mlp.w_up"]),
-                  w["mlp.w_down"])
-
-
 @dataclass
 class AdamWConfig:
     lr: float
@@ -130,6 +101,11 @@ class Readings:
 
 def _norm(t: torch.Tensor) -> float:
     return float(torch.linalg.vector_norm(t.double()))
+
+
+def _layer_out(out) -> Tuple:
+    """An architecture's ``layer`` result as (output, term, row_stats)."""
+    return (out, None, None) if isinstance(out, torch.Tensor) else out
 
 
 class _Group:
@@ -173,11 +149,10 @@ class Reference:
     """The reference's training state: fp32 weights drawn from ``seed``,
     whole on every rank, and this rank's chunk of AdamW's moments."""
 
-    def __init__(self, spec: ModelSpec, seed: int, opt: AdamWConfig,
-                 device, precision: str = "fp32"):
-        if spec.tied:
-            raise ValueError("the reference has no tied head")
+    def __init__(self, spec, seed: int, opt: AdamWConfig, device,
+                 precision: str = "fp32"):
         self.spec, self.seed, self.opt = spec, seed, opt
+        self.arch = arch.module(spec, "reference")
         self.device = torch.device(device)
         self.mm = _matmul(precision)
         self.group = _Group()
@@ -233,51 +208,61 @@ class Reference:
         rank taking its share of the rows; -> the mean next-token loss
         over the whole batch before the step. ``grad_norms``, when given,
         is filled with each leaf's gradient norm."""
-        spec, mm, grp = self.spec, self.mm, self.group
+        spec, mm, grp, model = self.spec, self.mm, self.group, self.arch
         self.count += 1
         rows = tokens.shape[0] // grp.world
         n_tokens = tokens.shape[0] * (tokens.shape[1] - 1)
         tokens = tokens[grp.rank * rows:(grp.rank + 1) * rows]
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
         b, s = inputs.shape
-        rope = _rope_tables(spec, s, self.device)
+        ctx = model.prepare(spec, s, self.device)
         blocks = spec.blocks()
+        n_layers = len(blocks) - 1
 
         def finish(leaves: Dict[str, torch.Tensor], prefix: str = ""):
             self._update({prefix + k: v.grad for k, v in leaves.items()},
                          grad_norms)
 
         xs = [self.params["embed.table"][inputs]]
+        stats: List[Optional[torch.Tensor]] = []
         with torch.no_grad():
-            for i in range(spec.n_layers):
+            for i in range(n_layers):
                 w = {n[len(f"layers.{i}."):]: self.params[n]
                      for n, _ in blocks[i + 1]}
-                xs.append(torch.stack([layer_forward(spec, w, xs[-1][r],
-                                                     rope, mm)
-                                       for r in range(b)]))
-        head = self._leaves(["final_norm.scale", "lm_head"])
+                outs = [_layer_out(model.layer(spec, i, w, xs[-1][r], ctx, mm,
+                                               None))
+                        for r in range(b)]
+                xs.append(torch.stack([y for y, _, _ in outs]))
+                row = [st for _, _, st in outs if st is not None]
+                stats.append(grp.sum(torch.stack(row).sum(dim=0)) if row
+                             else None)
+                del outs, row
+        head = self._leaves([n for n, _ in blocks[0] if n != "embed.table"])
         dx = torch.empty_like(xs[-1])
         total = torch.zeros((), dtype=torch.float64, device=self.device)
         for r in range(b):
             x = xs[-1][r].detach().requires_grad_()
-            logits = mm(_rmsnorm(x, head["final_norm.scale"], spec.norm_eps),
-                        head["lm_head"])
-            nll = torch.logsumexp(logits, dim=-1) - torch.gather(
-                logits, 1, targets[r][:, None])[:, 0]
-            loss = nll.sum() / n_tokens
+            loss = model.head(spec, head, x, targets[r], mm) / n_tokens
             loss.backward()
             dx[r] = x.grad
             total += loss.detach().double()
-            del logits, nll, loss
+            del loss
         finish(head)
         xs.pop()
-        for i in reversed(range(spec.n_layers)):
+        for i in reversed(range(n_layers)):
             prefix = f"layers.{i}."
             w = self._leaves([n for n, _ in blocks[i + 1]], prefix)
             x_in = xs.pop()
             for r in range(b):
                 x = x_in[r].detach().requires_grad_()
-                layer_forward(spec, w, x, rope, mm).backward(dx[r])
+                y, term, _ = _layer_out(model.layer(spec, i, w, x, ctx, mm,
+                                                    stats[i]))
+                if term is None:
+                    y.backward(dx[r])
+                else:
+                    torch.autograd.backward([y, term],
+                                            [dx[r], torch.ones_like(term)])
+                    total += term.detach().double()
                 dx[r] = x.grad
             del x_in
             finish(w, prefix)
@@ -296,7 +281,7 @@ class Reference:
         return out
 
 
-def run_reference(spec: ModelSpec, seed: int, batches: Sequence[torch.Tensor],
+def run_reference(spec, seed: int, batches: Sequence[torch.Tensor],
                   opt: AdamWConfig, device,
                   precision: str = "fp32") -> Readings:
     """``len(batches)`` steps of the reference from the seed's weights."""

@@ -12,8 +12,6 @@ from typing import Dict
 import numpy as np
 import torch
 
-from harness.spec import ModelSpec
-
 _WEIGHTS, _TOKENS = 0xB10C, 0x70CE
 
 
@@ -23,23 +21,11 @@ def _stream(seed: int, *key: int) -> int:
     return int(ss.generate_state(1, np.uint64)[0])
 
 
-def init_scale(spec: ModelSpec, name: str, shape) -> float:
-    """The draw's standard deviation: 1/sqrt(fan-in), the embedding 0.02,
-    the residual outputs (attention's and the MLP's last products) scaled
-    down by 1/sqrt(2 L). Norm scales start at 1 (0 here: not drawn)."""
-    if len(shape) == 1:
-        return 0.0
-    if name == "embed.table":
-        return 0.02
-    if name.endswith(("attn.wo", "mlp.w_down")):
-        return 1.0 / math.sqrt(2 * spec.n_layers * shape[0])
-    return 1.0 / math.sqrt(shape[0])
-
-
-def block_weights(spec: ModelSpec, seed: int, block: int,
+def block_weights(spec, seed: int, block: int,
                   device) -> Dict[str, torch.Tensor]:
-    """{name: fp32 tensor} of one block (``ModelSpec.blocks``), drawn in one
-    call; the tensors are views of one buffer."""
+    """{name: fp32 tensor} of one block (the spec's ``blocks()``), drawn in
+    one call at the spec's ``init_scale``; the tensors are views of one
+    buffer, and leaves of one dimension (norm scales) are ones."""
     leaves = spec.blocks()[block]
     drawn = [(n, s) for n, s in leaves if len(s) > 1]
     total = sum(math.prod(s) for _, s in drawn)
@@ -54,7 +40,7 @@ def block_weights(spec: ModelSpec, seed: int, block: int,
             continue
         n = math.prod(shape)
         out[name] = flat[at:at + n].view(shape).mul_(
-            init_scale(spec, name, shape))
+            spec.init_scale(name, shape))
         at += n
     return out
 

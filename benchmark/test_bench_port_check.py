@@ -16,11 +16,11 @@ import pytest
 import torch
 
 import calibrate
+from harness import arch
 from harness.cell import load_cell
 from harness.check import compare, judge
 from harness.reference import AdamWConfig, run_reference
 from harness.session import result_line, run_cell
-from harness.spec import ModelSpec
 from harness.weights import token_pool
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -40,7 +40,7 @@ def small(workload):
     config = dict(cell.config, **SMALL)
     traffic = dict(cell.traffic, batch_per_rank=2, seq=32, dtype="float32")
     return dataclasses.replace(cell, config=config, traffic=traffic,
-                               spec=ModelSpec.from_config(config))
+                               spec=arch.spec(config))
 
 
 def _rank(rank, port, workload, seed, fault, trace, out):

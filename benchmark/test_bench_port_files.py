@@ -50,37 +50,85 @@ def test_every_cell_resolves_to_its_files(workload):
         assert callable(reader(m["name"]))
 
 
-def _imports(path: Path) -> set:
-    tree = ast.parse(path.read_text())
+def _modules(path: Path) -> set:
+    """Dotted names of the modules ``path`` imports (``from a import b``
+    gives ``a`` and ``a.b``)."""
     out = set()
-    for node in ast.walk(tree):
+    for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
-            out |= {a.name.split(".")[0] for a in node.names}
+            out |= {a.name for a in node.names}
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            out.add(node.module.split(".")[0])
+            out |= {node.module} | {f"{node.module}.{a.name}"
+                                    for a in node.names}
     return out
 
 
-@pytest.mark.parametrize("path", sorted(
-    str(p.relative_to(BENCH_DIR)) for p in BENCH_DIR.rglob("*.py")))
+def _imports(path: Path) -> set:
+    """Top-level names of the modules ``path`` imports."""
+    return {n.split(".")[0] for n in _modules(path)}
+
+
+PY_FILES = sorted(str(p.relative_to(BENCH_DIR))
+                  for p in BENCH_DIR.rglob("*.py"))
+
+
+@pytest.mark.parametrize("path", PY_FILES)
 def test_no_module_imports_jax_or_the_jax_package(path):
     """Top-level names compared whole: ``ray_tpu_torch`` is not
     ``ray_tpu``."""
     assert not _imports(BENCH_DIR / path) & FORBIDDEN
 
 
+# Every architecture's reference and spec: the benchmark's own, and those
+# its tests bring (``testdata/<name>/archs/<arch>/``).
+ARCH_FILES = sorted(p for p in BENCH_DIR.rglob("archs/*/*.py")
+                    if p.stem in ("reference", "spec"))
+
+
+def _own_file(base: Path, dotted: str):
+    """The benchmark's file of the module ``dotted`` (under ``base``, then
+    the benchmark's directory), or None for another package's."""
+    for root in (base, BENCH_DIR):
+        p = root.joinpath(*dotted.split("."))
+        for f in (p.with_suffix(".py"), p / "__init__.py"):
+            if f.is_file():
+                return f
+    return None
+
+
 def test_reference_imports_nothing_of_the_program():
-    """The reference and the benchmark modules it imports."""
-    seen, todo = set(), ["reference"]
+    """The reference's runner, every architecture's reference and spec,
+    and the benchmark modules they import."""
+    starts = [(BENCH_DIR, BENCH_DIR / "harness" / "reference.py")] + [
+        (p.parents[2], p) for p in ARCH_FILES]
+    seen, todo = set(), list(starts)
     while todo:
-        mod = todo.pop()
-        seen.add(mod)
-        names = _imports(BENCH_DIR / "harness" / f"{mod}.py")
-        assert "ray_tpu_torch" not in names, mod
-        src = (BENCH_DIR / "harness" / f"{mod}.py").read_text()
-        todo += [m for m in re.findall(r"from harness\.(\w+) import", src)
-                 if m not in seen]
-    assert seen >= {"reference", "spec", "weights"}
+        base, path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        assert "ray_tpu_torch" not in _imports(path), path
+        todo += [(base, f) for f in (_own_file(base, n)
+                                     for n in _modules(path)) if f]
+    rel = {str(p.relative_to(BENCH_DIR)) for p in seen}
+    assert rel >= {"harness/reference.py", "harness/weights.py",
+                   "harness/arch.py", "archs/gpt/reference.py",
+                   "archs/gpt/spec.py"}
+
+
+def test_every_architecture_is_under_the_import_tests():
+    """Each architecture's reference and spec is among the files whose
+    imports are checked for JAX, and its spec imports nothing but the
+    standard library (and specs of other architectures)."""
+    assert {p.parent.name for p in ARCH_FILES} >= {"gpt", "toy_moe"}
+    for p in ARCH_FILES:
+        assert str(p.relative_to(BENCH_DIR)) in PY_FILES
+        if p.stem != "spec":
+            continue
+        for n in _modules(p):
+            parts = n.split(".")
+            assert (parts[0] in sys.stdlib_module_names | {"__future__"}
+                    or parts[0] == "archs" and parts[2:3] == ["spec"]), (p, n)
 
 
 def _run(cwd, *extra, env=None):

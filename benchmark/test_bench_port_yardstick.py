@@ -6,7 +6,8 @@ from pathlib import Path
 
 import pytest
 
-from harness.spec import ModelSpec, attn_bound_s
+from archs.gpt.spec import ModelSpec
+from harness.spec import attn_bound_s
 
 HERE = Path(__file__).resolve().parent
 

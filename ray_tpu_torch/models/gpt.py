@@ -9,7 +9,14 @@ in without transposes. Master weights are fp32 and are cast to
 or ``mha_reference``.
 
 Dense and MoE layers, remat ``full``, ``dots`` and ``none``; flash,
-reference or ring attention.
+reference or ring attention. Beside the JAX model's family, DeepSeek-V3's
+block (``GPTConfig`` with ``kv_lora_rank`` and ``router="sigmoid"``):
+latent attention (``_mla_block``), sigmoid-routed experts of which the
+model holds a share (``held_experts``) with shared experts and dense
+leading layers (``_sparse_moe_block``, which serves softmax routing too
+where experts are held or shared), the sequence-wise balance loss
+(``_seq_aux``) and the selection bias's update after each train step
+(``GPT.step_done``).
 
 Across devices (``train/train_step.py``) the model computes, on each rank,
 its part of the global function of the JAX model, in the running step's
@@ -57,6 +64,24 @@ from ray_tpu_torch.parallel.mesh import (Axis, all_sum, current_step,
 from ray_tpu_torch.parallel.sharding import Placement
 from ray_tpu_torch.parallel.tensor_parallel import (all_max, copy_to,
                                                     reduce_from, take_part)
+from ray_tpu_torch.util.spans import span
+
+# RMSNorm's eps on MLA's latent: DeepSeek-V2/V3 build that norm with the
+# norm's default, not the config's rms_norm_eps.
+MLA_LATENT_EPS = 1e-6
+
+
+@dataclass
+class ExpertCounts:
+    """Counters of the sparse expert layer (``_sparse_moe_block``), read by
+    the benchmark: ``calls``, its passes (remat's recompute included), and
+    ``rows``, the (token, expert) pairs those passes computed on held
+    experts."""
+    calls: int = 0
+    rows: int = 0
+
+
+EXPERTS = ExpertCounts()
 
 
 @dataclass(frozen=True)
@@ -73,6 +98,36 @@ class GPTConfig:
     # MoE: 0 = dense MLPs; >0 = that many experts with top-k routing.
     n_experts: int = 0
     expert_top_k: int = 2
+    # "softmax": the JAX model's MoE (softmax, top-k renormalised, the
+    # Switch loss). "sigmoid": DeepSeek-V3's (sigmoid scores, a selection
+    # bias buffer added for the choice only, the chosen k renormalised and
+    # scaled by routed_scale, the sequence-wise balance loss at
+    # seq_aux_alpha).
+    router: str = "softmax"
+    routed_scale: float = 1.0
+    seq_aux_alpha: float = 1e-4
+    # DeepSeek-V3's bias update speed: after each train step every selection
+    # bias moves by this toward balance, up where its expert's load (the
+    # step's tokens that chose it, over the batch group) was below the
+    # mean and down where above; 0: the bias stays. "sigmoid" only.
+    bias_update_rate: float = 0.0
+    # (first, count): the experts of the n_experts routed over whose weights
+    # this model holds, as one card of an expert-parallel deployment does;
+    # None: all of them. Held or shared experts, or "sigmoid" routing, take
+    # the sparse dispatch (each token computed by the held experts it is
+    # routed to alone); the rest, the JAX model's MoE, the dense one.
+    held_experts: Optional[Tuple[int, int]] = None
+    moe_d_ff: int = 0                 # an expert's width; 0: d_ff
+    n_shared_experts: int = 0   # one SwiGLU of n x moe_d_ff on every token
+    first_dense_layers: int = 0  # layers below it are dense MLPs of d_ff
+    # Latent attention (MLA) where kv_lora_rank > 0: q and k heads of
+    # qk_nope_head_dim + qk_rope_head_dim (RoPE on the latter, one rotated
+    # key shared by every head), v heads of v_head_dim, k and v drawn from
+    # a normed latent of kv_lora_rank.
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
     remat: bool = True
     # None -> "full" if remat else "none". "full" recomputes each layer in
     # backward (torch.utils.checkpoint per layer); "dots" saves the weight
@@ -89,6 +144,22 @@ class GPTConfig:
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
+
+    @property
+    def expert_d_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
+
+    @property
+    def held(self) -> Tuple[int, int]:
+        return self.held_experts or (0, self.n_experts)
+
+    @property
+    def dense_dispatch(self) -> bool:
+        """Every expert on every token (``_moe_block``): the JAX model's
+        MoE, whose weight products remat "dots" saves as JAX's policy
+        does."""
+        return (self.router == "softmax" and self.held_experts is None
+                and not self.n_shared_experts)
 
     @staticmethod
     def gpt2_small() -> "GPTConfig":
@@ -115,6 +186,18 @@ def _check_supported(cfg: GPTConfig) -> None:
                          "(expected 'full' | 'dots' | 'none')")
     if cfg.attention not in ("flash", "reference", "ring"):
         raise ValueError(f"unknown attention {cfg.attention!r}")
+    if cfg.router not in ("softmax", "sigmoid"):
+        raise ValueError(f"unknown router {cfg.router!r}")
+    if cfg.bias_update_rate and cfg.router != "sigmoid":
+        raise ValueError("bias_update_rate needs router='sigmoid'")
+    first, count = cfg.held
+    if cfg.n_experts and not 0 <= first < first + count <= cfg.n_experts:
+        raise ValueError(f"held_experts {cfg.held_experts} outside the "
+                         f"{cfg.n_experts} experts")
+    if cfg.kv_lora_rank and cfg.v_head_dim > (cfg.qk_nope_head_dim
+                                              + cfg.qk_rope_head_dim):
+        raise ValueError("latent attention's v_head_dim is padded to the "
+                         "q and k heads' width, so it cannot be wider")
 
 
 def _dense(shape, scale: Optional[float], gen: torch.Generator):
@@ -146,10 +229,24 @@ class _Attn(nn.Module):
         self.wo = _dense((d, d), 1.0 / math.sqrt(2 * cfg.n_layers * d), gen)
 
 
-class _MLP(nn.Module):
+class _MLA(nn.Module):
     def __init__(self, cfg: GPTConfig, gen):
         super().__init__()
-        d, ff = cfg.d_model, cfg.d_ff
+        d, h = cfg.d_model, cfg.n_heads
+        dn, dr, dv = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+        self.wq = _dense((d, h * (dn + dr)), None, gen)
+        self.wkv_a = _dense((d, cfg.kv_lora_rank + dr), None, gen)
+        self.kv_norm = _Norm(cfg.kv_lora_rank, gen.device)
+        self.wkv_b = _dense((cfg.kv_lora_rank, h * (dn + dv)), None, gen)
+        self.wo = _dense((h * dv, d),
+                         1.0 / math.sqrt(2 * cfg.n_layers * h * dv), gen)
+
+
+class _MLP(nn.Module):
+    def __init__(self, cfg: GPTConfig, gen, d_ff: Optional[int] = None):
+        super().__init__()
+        d, ff = cfg.d_model, d_ff or cfg.d_ff
         self.w_gate = _dense((d, ff), None, gen)
         self.w_up = _dense((d, ff), None, gen)
         self.w_down = _dense((ff, d), 1.0 / math.sqrt(2 * cfg.n_layers * ff),
@@ -157,14 +254,29 @@ class _MLP(nn.Module):
 
 
 class _MoE(nn.Module):
+    """The router over all ``n_experts``, the weights of the held ones
+    (``cfg.held``), the shared experts; under "sigmoid" routing the
+    selection bias, a buffer, and where it moves (``bias_update_rate``)
+    the step's loads, another."""
+
     def __init__(self, cfg: GPTConfig, gen):
         super().__init__()
-        d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+        d, ff, e = cfg.d_model, cfg.expert_d_ff, cfg.n_experts
+        held = cfg.held[1]
+        # The JAX init scales the experts' inputs by their first dim.
+        scale = None if cfg.dense_dispatch else 1.0 / math.sqrt(d)
         self.router = _dense((d, e), 0.02, gen)
-        self.w_gate = _dense((e, d, ff), None, gen)
-        self.w_up = _dense((e, d, ff), None, gen)
-        self.w_down = _dense((e, ff, d),
+        self.w_gate = _dense((held, d, ff), scale, gen)
+        self.w_up = _dense((held, d, ff), scale, gen)
+        self.w_down = _dense((held, ff, d),
                              1.0 / math.sqrt(2 * cfg.n_layers * ff), gen)
+        if cfg.n_shared_experts:
+            self.shared = _MLP(cfg, gen, cfg.n_shared_experts * ff)
+        if cfg.router == "sigmoid":
+            self.register_buffer("bias", torch.zeros(e, device=gen.device))
+        if cfg.bias_update_rate:
+            self.register_buffer("load", torch.zeros(e, device=gen.device),
+                                 persistent=False)
 
 
 class _Layer(nn.Module):
@@ -174,8 +286,8 @@ class _Layer(nn.Module):
         self.path = f"layers.{index}."     # its parameters' name prefix
         self.ln1 = _Norm(cfg.d_model, gen.device)
         self.ln2 = _Norm(cfg.d_model, gen.device)
-        self.attn = _Attn(cfg, gen)
-        if cfg.n_experts > 0:
+        self.attn = _MLA(cfg, gen) if cfg.kv_lora_rank else _Attn(cfg, gen)
+        if cfg.n_experts > 0 and index >= cfg.first_dense_layers:
             self.moe = _MoE(cfg, gen)
         else:
             self.mlp = _MLP(cfg, gen)
@@ -233,6 +345,8 @@ class GPT(nn.Module):
         t = placement.mesh.shape["tensor"]
         split = any(placement.split_dim(name, "tensor") is not None
                     for name in names if ".attn." in name)
+        if split and self.cfg.kv_lora_rank:
+            raise ValueError("latent attention is not split over 'tensor'")
         if split and self.cfg.n_heads % t:
             raise ValueError(f"attn/wq: {self.cfg.n_heads} heads do not "
                              f"divide over the 'tensor' axis ({t})")
@@ -252,9 +366,29 @@ class GPT(nn.Module):
                                     targets.reshape(b * s),
                                     mask.reshape(b * s), vocab=vocab)
         loss = total / torch.clamp_min(all_sum(denom), 1.0)
-        if self.cfg.n_experts > 0:
+        if self.cfg.router == "sigmoid":
+            loss = loss + self.cfg.seq_aux_alpha * aux
+        elif self.cfg.n_experts > 0:
             loss = loss + 0.01 * aux / self.cfg.n_layers
         return loss
+
+    @torch.no_grad()
+    def step_done(self) -> None:
+        """The train step's passes are done (``train.train_step`` calls it
+        in the step's context): each selection bias moves by
+        ``bias_update_rate`` toward balance, by the loads its layer
+        counted in the step's forward passes summed over the batch group,
+        and the counts start again. Nothing where the bias stays."""
+        rate = self.cfg.bias_update_rate
+        moes = [layer.moe for layer in self.layers
+                if hasattr(layer, "moe")] if rate else []
+        if not moes:
+            return
+        loads = all_sum(torch.stack([m.load for m in moes]))
+        step = rate * torch.sign(loads.mean(dim=-1, keepdim=True) - loads)
+        for m, d in zip(moes, step):
+            m.bias += d
+            m.load.zero_()
 
 
 def gpt_init(cfg: GPTConfig, device=None,
@@ -345,21 +479,49 @@ def _attention_block(layer: _Layer, x, cfg: GPTConfig, positions,
     q = _rope(heads(wq), cfg.rope_theta, positions)
     k = _rope(heads(wk), cfg.rope_theta, positions)
     v = heads(wv)
-    if cfg.attention == "ring":
-        o = ring_attention(q, k, v, mesh=step_mesh(), causal=True)
-    elif cfg.attention == "reference":
-        o = mha_reference(q, k, v, causal=True)
-    else:
-        o = flash_attention(q, k, v, causal=True, block_q=cfg.flash_block_q,
-                            block_k=cfg.flash_block_k)
-    o = o.transpose(1, 2).reshape(b, s, h * hd)
+    o = _attend(q, k, v, cfg).transpose(1, 2).reshape(b, s, h * hd)
     return reduce_from(o @ wo.to(dt), ax.group)
 
 
+def _attend(q, k, v, cfg: GPTConfig):
+    """Causal attention over [B, H, S, D] by ``cfg.attention``."""
+    if cfg.attention == "ring":
+        return ring_attention(q, k, v, mesh=step_mesh(), causal=True)
+    if cfg.attention == "reference":
+        return mha_reference(q, k, v, causal=True)
+    return flash_attention(q, k, v, causal=True, block_q=cfg.flash_block_q,
+                           block_k=cfg.flash_block_k)
+
+
+def _mla_block(layer: _Layer, x, cfg: GPTConfig, positions):
+    """Latent attention without a query low-rank projection (DeepSeek-V2/V3
+    with ``q_lora_rank`` null): q = x wq; [c, k_pe] = x wkv_a, c normed;
+    [k_nope, v] = c wkv_b; RoPE on the last qk_rope_head_dim of each q
+    head and on k_pe, which every head shares; softmax scale 1/sqrt(d_qk).
+    v is padded with zeros to the q and k heads' width for the kernels,
+    and the output's padded columns, zero, are dropped."""
+    b, s, _ = x.shape
+    dt, a = cfg.dtype, layer.attn
+    h, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                     cfg.v_head_dim)
+    q = (x @ a.wq.to(dt)).view(b, s, h, dn + dr).transpose(1, 2)
+    c, k_pe = (x @ a.wkv_a.to(dt)).split([cfg.kv_lora_rank, dr], dim=-1)
+    c = _rmsnorm(c, a.kv_norm.scale, MLA_LATENT_EPS)
+    k_nope, v = (c @ a.wkv_b.to(dt)).view(b, s, h, dn + dv).transpose(
+        1, 2).split([dn, dv], dim=-1)
+    q = torch.cat([q[..., :dn], _rope(q[..., dn:], cfg.rope_theta,
+                                      positions)], dim=-1)
+    k_pe = _rope(k_pe[:, None], cfg.rope_theta, positions)
+    k = torch.cat([k_nope, k_pe.expand(b, h, s, dr)], dim=-1)
+    o = _attend(q, k, F.pad(v, (0, dn + dr - dv)), cfg)[..., :dv]
+    return o.transpose(1, 2).reshape(b, s, h * dv) @ a.wo.to(dt)
+
+
 def _mlp_block(layer: _Layer, x, cfg: GPTConfig,
-               placement: Optional[Placement] = None):
+               placement: Optional[Placement] = None, mlp=None):
+    """The layer's SwiGLU MLP, or ``mlp`` (the shared experts, whole)."""
     dt = cfg.dtype
-    m = layer.mlp
+    m = layer.mlp if mlp is None else mlp
     (w_gate, w_up, w_down), ax = _take(placement, "tensor", layer.path, {
         "mlp.w_gate": m.w_gate, "mlp.w_up": m.w_up, "mlp.w_down": m.w_down})
     x = copy_to(x, ax.group)
@@ -369,21 +531,33 @@ def _mlp_block(layer: _Layer, x, cfg: GPTConfig,
 
 
 def _route(moe: _MoE, x, cfg: GPTConfig):
-    """The router: fp32 logits from ``x.float()``, softmax over experts,
-    top-k, weights renormalised over the k. -> (probs [b,s,e], weights
-    [b,s,k], expert indices [b,s,k])."""
+    """The router: fp32 logits from ``x.float()``. "softmax": softmax over
+    experts, top-k, weights renormalised over the k. "sigmoid" (DeepSeek-V3,
+    one group): sigmoid scores, top-k of the scores plus the selection bias,
+    the chosen scores renormalised over the k and scaled by
+    ``routed_scale``. -> (scores [b,s,e], weights [b,s,k], expert indices
+    [b,s,k])."""
     logits = x.float() @ moe.router.float()
-    probs = torch.softmax(logits, dim=-1)
-    weights, idx = torch.topk(probs, cfg.expert_top_k, dim=-1)
-    return probs, weights / weights.sum(dim=-1, keepdim=True), idx
+    if cfg.router == "softmax":
+        probs = torch.softmax(logits, dim=-1)
+        weights, idx = torch.topk(probs, cfg.expert_top_k, dim=-1)
+        return probs, weights / weights.sum(dim=-1, keepdim=True), idx
+    scores = torch.sigmoid(logits)
+    idx = torch.topk(scores + moe.bias, cfg.expert_top_k, dim=-1)[1]
+    weights = scores.gather(-1, idx)
+    weights = weights / (weights.sum(dim=-1, keepdim=True) + 1e-20)
+    return scores, weights * cfg.routed_scale, idx
 
 
 def _moe_block(layer: _Layer, x, cfg: GPTConfig,
                placement: Optional[Placement] = None):
-    """Top-k routed MoE with dense dispatch: every expert runs on every
-    token and a one-hot combine [b,s,e] keeps the chosen k. Returns (y,
-    stats): stats [2, e] holds, per expert, the tokens whose top-1 choice
-    it is and the sum of its router probabilities (``_switch_aux``).
+    """Top-k routed MoE with dense dispatch (``cfg.dense_dispatch``: the
+    JAX model's MoE, kept op for op, since its weight products are the
+    ones that remat "dots" saves, as JAX's policy does): every expert runs
+    on every token and a one-hot combine [b,s,e] keeps the chosen k.
+    Returns (y, stats): stats [2, e] holds, per expert, the tokens whose
+    top-1 choice it is and the sum of its router probabilities
+    (``_switch_aux``).
 
     Split over the expert axis (experts) and the tensor axis (d_ff), a rank
     runs its experts on its part of d_ff for every token it holds, and the
@@ -422,6 +596,120 @@ def _moe_block(layer: _Layer, x, cfg: GPTConfig,
     return y.to(dt), stats
 
 
+def _sparse_moe_block(layer: _Layer, x, cfg: GPTConfig,
+                      placement: Optional[Placement] = None):
+    """Routed experts with sparse dispatch (either router; see
+    ``GPTConfig.dense_dispatch``): routing over all ``n_experts``; the
+    (token, expert) pairs routed to the experts this model holds
+    (``cfg.held``, or its part of them where the placement splits the
+    expert axis) gathered by expert, each expert's SwiGLU on its rows
+    alone (``_grouped_mm``), no token dropped and no capacity; the
+    weighted rows added back to their tokens, the shared experts on every
+    token. Sizing the gathers reads the experts' row counts on the host:
+    one synchronisation a pass. Returns (y, stats), the balance loss's
+    statistics: under "sigmoid" routing [2, b, e], per sequence and expert,
+    the tokens whose k chosen include it and the sum of its scores
+    normalised over the experts (``_seq_aux``); under "softmax"
+    ``_moe_block``'s (``_switch_aux``).
+
+    Over the expert axis each rank computes its experts' rows and the
+    routed part is summed over the axis; the shared experts, which every
+    rank computes alike, are added after the sum."""
+    dt = cfg.dtype
+    m = layer.moe
+    b, s, d = x.shape
+    k = cfg.expert_top_k
+    scores, weights, idx = _route(m, x, cfg)
+    (w_gate, w_up, w_down), ex = _take(placement, "expert", layer.path, {
+        "moe.w_gate": m.w_gate, "moe.w_up": m.w_up, "moe.w_down": m.w_down})
+    (w_gate, w_up, w_down), tx = _take(placement, "tensor", layer.path, {
+        "moe.w_gate": w_gate, "moe.w_up": w_up, "moe.w_down": w_down})
+    axes = [a for a, ax in (("expert", ex), ("tensor", tx)) if ax.size > 1]
+    group = placement.mesh.axis(axes).group if axes else None
+    held = w_up.shape[0]
+    first = cfg.held[0] + ex.index * held
+    # Pairs sorted by held expert, the rest (key ``held``) last.
+    local = idx.reshape(-1) - first
+    key = torch.where((local >= 0) & (local < held), local, held)
+    order = torch.argsort(key, stable=True)
+    # Counted by a scatter: bincount would read its input's range on the
+    # host, two synchronisations more. The counts come to the host while
+    # the card works on what needs no count: the weights' casts, the
+    # shared experts, the balance statistics.
+    counts = torch.zeros(held + 1, dtype=torch.long, device=x.device
+                         ).scatter_add_(0, key, torch.ones_like(key))
+    counted = _to_host(counts)
+    ends = counts[:held].cumsum(0).to(torch.int32)
+    w_gate, w_up, w_down = (w.to(dt) for w in (w_gate, w_up, w_down))
+    tokens, gate = order // k, copy_to(weights, group).reshape(-1)[order]
+    shared = (_mlp_block(layer, x, cfg, mlp=m.shared)
+              if cfg.n_shared_experts else None)
+    if cfg.router == "softmax":
+        stats = torch.stack([F.one_hot(idx[..., 0], cfg.n_experts).float(
+        ).sum(dim=(0, 1)), scores.sum(dim=(0, 1))])
+    else:
+        chosen = torch.zeros_like(scores).scatter_(-1, idx, 1.0)
+        stats = torch.stack([chosen.sum(dim=1), (scores / scores.sum(
+            dim=-1, keepdim=True)).sum(dim=1)])
+    sizes = counted().tolist()[:held]
+    n = sum(sizes)
+    # Counted here: remat's recompute stops after the last tensor that the
+    # backward saves, before the combine.
+    EXPERTS.calls += 1
+    EXPERTS.rows += n
+    tokens, gate = tokens[:n], gate[:n]
+    rows = copy_to(x, group).reshape(b * s, d)[tokens]
+    act = F.silu(_grouped_mm(rows, w_gate, sizes, ends)) \
+        * _grouped_mm(rows, w_up, sizes, ends)
+    out = _grouped_mm(act, w_down, sizes, ends)
+    routed = torch.zeros(b * s, d, dtype=torch.float32, device=x.device
+                         ).index_add(0, tokens, out.float() * gate[:, None])
+    y = reduce_from(routed, group).view(b, s, d).to(dt)
+    if shared is not None:
+        y = y + shared
+    return y, stats
+
+
+def _grouped_mm(a, w, sizes, ends):
+    """Rows of ``a`` [n, i] grouped by expert (``sizes`` on the host,
+    ``ends`` their cumulative ends on the device) each times its expert's
+    ``w`` [e, i, o] -> [n, o]: one grouped product on the card in bf16
+    (``torch._grouped_mm``), elsewhere a product an expert."""
+    if a.is_cuda and a.dtype == torch.bfloat16 and a.shape[0]:
+        return torch._grouped_mm(a, w, offs=ends)
+    return torch.cat([r @ w[j] for j, r in enumerate(a.split(sizes))])
+
+
+def _to_host(t: torch.Tensor):
+    """Start copying ``t`` to the host; -> a function that waits for the
+    copy alone (not for the work queued after it) and returns the copy."""
+    if not t.is_cuda:
+        return lambda: t
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def wait():
+        done.synchronize()
+        return out
+    return wait
+
+
+def _seq_aux(stats, seq: int, top_k: int):
+    """DeepSeek-V3's sequence-wise balance loss summed over layers, without
+    its weight: per layer and sequence, the sum over experts of f (e / (k
+    T) times the tokens whose k chosen include the expert; no gradient)
+    times P (its scores normalised over the experts, the sequence's mean).
+    stats: [L, 2, b, e] from ``_sparse_moe_block``. The mean over sequences
+    is over the whole batch: this rank's share, whose sum over the batch
+    group is the whole batch's loss."""
+    e = stats.shape[-1]
+    f = stats[:, 0].detach() * (e / (top_k * seq))
+    n = all_sum(stats.new_tensor(float(stats.shape[2])))
+    return torch.sum(f * stats[:, 1] / seq) / n
+
+
 def _switch_aux(stats, n_tokens: int, n_experts: int):
     """Switch load-balancing loss summed over layers: per layer, e times
     the sum over experts of density (the share of tokens whose top-1 is
@@ -442,14 +730,24 @@ def _layer_fn(layer: _Layer, x, cfg: GPTConfig, positions,
               placement: Optional[Placement] = None):
     """-> (x, MoE stats or None); ``placement``: the model's (None: whole
     weights)."""
-    h = x + _attention_block(
-        layer, _rmsnorm(x, layer.ln1.scale, cfg.rmsnorm_eps), cfg, positions,
-        placement)
+    if cfg.kv_lora_rank:
+        with span("mla"):
+            h = x + _mla_block(
+                layer, _rmsnorm(x, layer.ln1.scale, cfg.rmsnorm_eps), cfg,
+                positions)
+    else:
+        h = x + _attention_block(
+            layer, _rmsnorm(x, layer.ln1.scale, cfg.rmsnorm_eps), cfg,
+            positions, placement)
     normed = _rmsnorm(h, layer.ln2.scale, cfg.rmsnorm_eps)
-    if cfg.n_experts > 0:
+    if not hasattr(layer, "moe"):
+        return h + _mlp_block(layer, normed, cfg, placement), None
+    if cfg.dense_dispatch:
         delta, stats = _moe_block(layer, normed, cfg, placement)
-        return h + delta, stats
-    return h + _mlp_block(layer, normed, cfg, placement), None
+    else:
+        with span("experts"):
+            delta, stats = _sparse_moe_block(layer, normed, cfg, placement)
+    return h + delta, stats
 
 
 def _layer_in_step(step, layer: _Layer, x, cfg: GPTConfig, positions,
@@ -515,6 +813,9 @@ def gpt_backbone(model: GPT, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
     if seq.size > 1 and cfg.attention != "ring":
         raise ValueError(f"a 'sequence' axis of {seq.size} needs "
                          f"attention='ring', not {cfg.attention!r}")
+    if seq.size > 1 and cfg.router == "sigmoid":
+        raise ValueError("the sequence-wise balance loss needs whole "
+                         "sequences: no 'sequence' axis")
     tokens = _local_positions(tokens, seq)
     b, s = tokens.shape
     x = _embed(model, tokens)
@@ -525,7 +826,13 @@ def gpt_backbone(model: GPT, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
         x, st = layer(x, positions, _placement(model))
         if st is not None:
             stats.append(st)
-    if stats:
+            if cfg.bias_update_rate and torch.is_grad_enabled():
+                # The step's loads, for ``GPT.step_done``: counted here,
+                # once a forward pass, never in remat's recompute.
+                layer.moe.load += st[0].detach().sum(dim=0)
+    if stats and cfg.router == "sigmoid":
+        aux = _seq_aux(torch.stack(stats), s, cfg.expert_top_k)
+    elif stats:
         aux = _switch_aux(torch.stack(stats), b * s, cfg.n_experts)
     else:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -21,7 +21,13 @@ The spans of the port: ``step`` (``train_step.make_train_step``'s step,
 a loss that runs its own backward), ``reduce``, ``grad_norm`` and
 ``update``; ``all_reduce`` (the step's own sums) and FSDP2's
 ``all_gather`` and ``reduce_scatter``, each with ``bytes`` of its
-unsharded side. Each is read by a per-layer metric of the benchmark."""
+unsharded side. Inside a layer of the DeepSeek-V3 block
+(``models/gpt.py``), in the forward and in remat's recompute alike:
+``mla``, the latent attention block, and ``experts``, the sparse expert
+layer (routing, dispatch, the held and shared experts, the combine), whose
+passes and rows computed on held experts the counters
+``models.gpt.EXPERTS.calls`` and ``.rows`` count. Each is read by a
+per-layer metric of the benchmark."""
 
 from __future__ import annotations
 

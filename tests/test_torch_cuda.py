@@ -1157,3 +1157,30 @@ def test_adamw_kernel_refuses(card):
         with pytest.raises(error, match=match):
             opt.update(grads, opt.init(params), params)
     assert (K.KERNEL.launches, K.KERNEL.leaves) == before
+
+
+@pytest.mark.cuda
+def test_grouped_expert_products_match_a_loop(card):
+    """The expert layer's grouped product (``models.gpt._grouped_mm``, one
+    ``torch._grouped_mm`` in bf16 on the card) against a product an expert
+    on the same rows, forward and backward, at Moonlight's expert widths
+    with uneven groups and an empty one: equal within two bf16 ulps of
+    the products' magnitude (both accumulate in fp32, tiled otherwise)."""
+    from ray_tpu_torch.models import gpt as G
+    sizes = [3001, 0, 2900, 3072, 17, 3050, 2999, 3013]
+    ends = torch.tensor(sizes, device="cuda").cumsum(0).to(torch.int32)
+    a = torch.randn(sum(sizes), 2048, device="cuda", generator=card,
+                    dtype=torch.bfloat16, requires_grad=True)
+    w = (0.02 * torch.randn(8, 2048, 1408, device="cuda", generator=card)
+         ).to(torch.bfloat16).requires_grad_()
+    g = torch.randn(sum(sizes), 1408, device="cuda", generator=card,
+                    dtype=torch.bfloat16)
+    got = G._grouped_mm(a, w, sizes, ends)
+    got.backward(g)
+    grads = a.grad.clone(), w.grad.clone()
+    a.grad = w.grad = None
+    want = torch.cat([r @ w[j] for j, r in enumerate(a.split(sizes))])
+    want.backward(g)
+    for x, y in ((got, want), (grads[0], a.grad), (grads[1], w.grad)):
+        err = float((x.float() - y.float()).abs().max())
+        assert err <= 2 * 2 ** -8 * float(y.float().abs().max()), err
